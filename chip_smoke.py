@@ -1,0 +1,347 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (``elfi_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+runs on cuda:0 and writes a profiler table of each graph to build/profiles/.
+
+Phases, each of which raises on failure (exit code != 0):
+
+1. Require a CUDA device; print its name, its power limit and the CUDA
+   version PyTorch was built with.
+2. Build the hand-written kernels from ``elfi_tpu_torch/csrc/`` with nvcc.
+3. Hold the MA2 distance kernel (K1) against its plain PyTorch version on
+   the card: the same noise in both (max relative error <= 1e-5), the
+   kernel's own Philox stream against ``torch.randn`` (mean and std of the
+   distances within 0.02), determinism per seed, the fused rejection loop
+   against the batch-at-a-time loop (bit-identical), and the time per call
+   of the kernel, the plain version and the top-N merge.
+4. The main path on the plain graph: ``Rejection(ma2.get_model(...)["d"],
+   batch_size=2**17, device="cuda").sample(5000, n_sim=2048 * 2**17)``,
+   gated at |posterior mean - (0.6, 0.2)| < 0.05.
+5. The same on the kernel graph (``models.ma2_kernel``) at batch 2**21; the
+   kernel's launch count must equal the number of batches.
+6. Profile a few batches of each graph: device busy share of the wall time
+   and the time by kernel.
+
+The last two lines are a JSON object describing each kernel and a JSON
+object ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+TRUE_PARAMS = np.array([0.6, 0.2])
+GATE = 0.05
+SEED_OBS = 271
+N_SAMPLES = 5000
+N_SIM = 2048 * 2**17
+PLAIN_BATCH = 2**17
+KERNEL_BATCH = 2**21
+N_OBS = 100
+OUT_DIR = Path(__file__).resolve().parent / "build" / "profiles"
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line():
+    """``name, power.limit`` of the card as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, warmup=3, reps=25):
+    """Median device time of ``fn()`` in ms, each call between its own pair
+    of CUDA events, after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def observed_autocovs(device):
+    from elfi_tpu_torch.models import ma2
+    y = torch.as_tensor(ma2.observed_data(seed_obs=SEED_OBS))[None]
+    return torch.tensor([float(ma2.autocov(y)[0]),
+                         float(ma2.autocov(y, lag=2)[0])],
+                        dtype=torch.float32, device=device)
+
+
+def prior_params(batch, device, seed):
+    """(t1, t2) drawn from the MA2 priors on ``device``."""
+    from elfi_tpu_torch.models.ma2 import CustomPrior1, CustomPrior2
+    g = torch.Generator(device=device).manual_seed(seed)
+    t1 = CustomPrior1.rvs(2.0, size=batch, generator=g)
+    t2 = CustomPrior2.rvs(t1, 1.0, size=batch, generator=g)
+    return t1.contiguous(), t2.contiguous()
+
+
+def phase_kernel_checks(device):
+    """K1 against its plain version on the card, and the times per call."""
+    from elfi_tpu_torch.ops import topk
+    from elfi_tpu_torch.ops.kernels.ma2 import (ma2_distance,
+                                                ma2_distance_noise,
+                                                ma2_distance_reference)
+    obs = observed_autocovs(device)
+    result = {}
+
+    # the same noise in both: the kernel's arithmetic, exactly
+    for batch in (2**16, KERNEL_BATCH):
+        t1, t2 = prior_params(batch, device, seed=batch)
+        g = torch.Generator(device=device).manual_seed(11)
+        noise = torch.randn((batch, N_OBS + 2), generator=g, device=device)
+        d_k = ma2_distance_noise(t1, t2, obs, noise)
+        d_p = ma2_distance_reference(t1, t2, obs, N_OBS, batch, noise=noise)
+        torch.cuda.synchronize()
+        err = (d_k - d_p).abs()
+        max_abs = float(err.max())
+        max_rel = float((err / d_p.abs()).max())
+        log(f"K1 noise-injected B={batch}: max_abs_err={max_abs!r} "
+            f"max_rel_err={max_rel!r} (tolerance rel 1e-5)")
+        check(bool(torch.isfinite(d_k).all()), "K1 output not finite")
+        check(max_rel <= 1e-5, f"K1 disagrees with its plain version: "
+              f"max relative error {max_rel} > 1e-5")
+        if batch == KERNEL_BATCH:
+            result["max_abs_err"] = max_abs
+            result["max_rel_err"] = max_rel
+        del noise
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    # the kernel's own Philox stream against torch.randn: statistics
+    batch = 2**20
+    t1 = torch.full((batch,), 0.6, device=device)
+    t2 = torch.full((batch,), 0.2, device=device)
+    d_k = ma2_distance(t1, t2, obs, n_obs=N_OBS, batch_size=batch,
+                       generator=gen(0))
+    d_p = ma2_distance_reference(t1, t2, obs, N_OBS, batch,
+                                 generator=gen(1))
+    stats = [float(x) for x in (d_k.mean(), d_p.mean(), d_k.std(),
+                                d_p.std())]
+    log(f"K1 RNG path B={batch}: mean kernel={stats[0]!r} plain={stats[1]!r}"
+        f" std kernel={stats[2]!r} plain={stats[3]!r} (tolerance 0.02)")
+    check(bool(torch.isfinite(d_k).all()), "K1 output not finite")
+    check(abs(stats[0] - stats[1]) < 0.02, "K1 distance means disagree")
+    check(abs(stats[2] - stats[3]) < 0.02, "K1 distance stds disagree")
+
+    a = ma2_distance(t1, t2, obs, N_OBS, batch, generator=gen(3))
+    b = ma2_distance(t1, t2, obs, N_OBS, batch, generator=gen(3))
+    c = ma2_distance(t1, t2, obs, N_OBS, batch, generator=gen(4))
+    check(torch.equal(a, b), "K1 is not deterministic for one seed")
+    check(not torch.equal(a, c), "K1 gives the same output for two seeds")
+    log("K1 determinism: same seed equal, different seed differs")
+
+    # times per call at the kernel graph's batch
+    t1, t2 = prior_params(KERNEL_BATCH, device, seed=5)
+    g_k, g_p = gen(21), gen(22)
+    result["ms"] = time_ms(lambda: ma2_distance(
+        t1, t2, obs, N_OBS, KERNEL_BATCH, generator=g_k))
+    result["plain_ms"] = time_ms(lambda: ma2_distance_reference(
+        t1, t2, obs, N_OBS, KERNEL_BATCH, generator=g_p))
+    log(f"K1 B={KERNEL_BATCH}: kernel {result['ms']!r} ms/call, plain "
+        f"{result['plain_ms']!r} ms/call (median of 25, CUDA events)")
+
+    # the top-N merge, the other per-batch cost of the rejection loop
+    for batch in (PLAIN_BATCH, KERNEL_BATCH):
+        t1, t2 = prior_params(batch, device, seed=7)
+        out = {"d": ma2_distance(t1, t2, obs, N_OBS, batch,
+                                 generator=gen(8)), "t1": t1, "t2": t2}
+        bufs = topk.init_buffers(N_SAMPLES, out, "d")
+        bufs, _ = topk.merge_core(bufs, out, math.inf, "d")
+        ms = time_ms(lambda: topk.merge_core(bufs, out, math.inf, "d"))
+        result[f"merge_ms_{batch}"] = ms
+        log(f"top-N merge n={N_SAMPLES} B={batch}: {ms!r} ms/call")
+    return result
+
+
+def phase_fused_equals_batchwise(device):
+    """The fused loop and the batch-at-a-time loop give the same samples on
+    the card, for both graphs."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import ma2, ma2_kernel
+    for mod in (ma2, ma2_kernel):
+        m = mod.get_model(seed_obs=SEED_OBS)
+        kw = dict(batch_size=2**14, seed=3, device=device)
+        a = et.Rejection(m["d"], **kw).sample(500, n_sim=8 * 2**14,
+                                              bar=False)
+        b = et.Rejection(m["d"], **kw).sample(500, n_sim=8 * 2**14,
+                                              bar=False, fused=False)
+        for k in a.outputs:
+            check(np.array_equal(a.outputs[k], b.outputs[k]),
+                  f"{mod.__name__}: fused and batch-at-a-time differ in {k}")
+    log("fused == batch-at-a-time on the card, both graphs")
+
+
+def run_rejection(mod, batch_size, device):
+    """One rejection run of the main path; returns (sample, seconds)."""
+    import elfi_tpu_torch as et
+    m = mod.get_model(seed_obs=SEED_OBS)
+    rej = et.Rejection(m["d"], batch_size=batch_size, seed=1, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rej.sample(N_SAMPLES, n_sim=N_SIM, bar=False)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def check_sample(res, batch_size, name):
+    n_batches = math.ceil(N_SIM / batch_size)
+    d = res.outputs["d"]
+    check(d.shape == (N_SAMPLES,), f"{name}: d has shape {d.shape}")
+    check(bool(np.all(np.isfinite(d))), f"{name}: non-finite distances")
+    check(bool(np.all(np.diff(d) >= 0)), f"{name}: distances not sorted")
+    for k in ("t1", "t2"):
+        check(res.samples[k].shape == (N_SAMPLES,), f"{name}: {k} shape")
+        check(bool(np.all(np.isfinite(res.samples[k]))),
+              f"{name}: non-finite {k}")
+    check(res.n_sim == n_batches * batch_size, f"{name}: n_sim {res.n_sim}")
+    means = res.sample_means_array
+    err = np.abs(means - TRUE_PARAMS)
+    log(f"{name}: posterior means {means.tolist()!r} |err| {err.tolist()!r}"
+        f" threshold {float(d[-1])!r} (gate < {GATE})")
+    check(bool(np.all(err < GATE)), f"{name}: MA2 gate failed: {means}")
+    return means
+
+
+def phase_main_path(device):
+    from elfi_tpu_torch.models import ma2, ma2_kernel
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    out = {}
+    # warm-up: allocator and generators, two batches each
+    for mod, bs in ((ma2, PLAIN_BATCH), (ma2_kernel, KERNEL_BATCH)):
+        import elfi_tpu_torch as et
+        m = mod.get_model(seed_obs=SEED_OBS)
+        et.Rejection(m["d"], batch_size=bs, seed=0, device=device).sample(
+            N_SAMPLES, n_sim=2 * bs, bar=False)
+    torch.cuda.synchronize()
+
+    for name, mod, bs, expect in (
+            ("plain graph", ma2, PLAIN_BATCH, 0),
+            ("kernel graph", ma2_kernel, KERNEL_BATCH,
+             math.ceil(N_SIM / KERNEL_BATCH))):
+        ma2_distance.launches = 0
+        res, dt = run_rejection(mod, bs, device)
+        launches = ma2_distance.launches
+        means = check_sample(res, bs, name)
+        sims_s = res.n_sim / dt
+        log(f"{name}: batch {bs}, {res.n_batches} batches, {res.n_sim} sims "
+            f"in {dt!r} s = {sims_s!r} sims/s; ma2_distance launches "
+            f"{launches} (expected {expect})")
+        check(launches == expect, f"{name}: ma2_distance launched "
+              f"{launches} times, expected {expect}")
+        out[name] = dict(seconds=dt, sims_per_s=sims_s, launches=launches,
+                         means=means.tolist(), n_batches=res.n_batches)
+    return out
+
+
+def phase_profile(device, main_path):
+    """Profile a few batches of each graph: device time per batch, and the
+    main path's device busy share (that time over the main path's wall time
+    per batch).  Tables go to build/profiles/."""
+    import elfi_tpu_torch as et
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from elfi_tpu_torch.models import ma2, ma2_kernel
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    for name, mod, bs, nb in (("plain graph", ma2, PLAIN_BATCH, 64),
+                              ("kernel graph", ma2_kernel, KERNEL_BATCH, 8)):
+        m = mod.get_model(seed_obs=SEED_OBS)
+        rej = et.Rejection(m["d"], batch_size=bs, seed=1, device=device)
+        rej.sample(N_SAMPLES, n_sim=2 * bs, bar=False)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rej.sample(N_SAMPLES, n_sim=nb * bs, bar=False)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # kernels and memsets only: an operator's own device time repeats
+        # the time of the kernels it launched
+        device_us = sum(e.self_device_time_total for e in events
+                        if e.device_type == DeviceType.CUDA)
+        per_batch_ms = device_us / 1e3 / nb
+        run = main_path[name]
+        wall_ms = run["seconds"] * 1e3 / run["n_batches"]
+        run["device_ms_per_batch"] = per_batch_ms
+        run["busy_share"] = per_batch_ms / wall_ms
+        fname = f"profile_{name.split()[0]}.txt"
+        (OUT_DIR / fname).write_text(events.table(
+            sort_by="self_device_time_total", row_limit=30))
+        log(f"profile {name}: device {per_batch_ms!r} ms/batch over {nb} "
+            f"batches of {bs}; main path {wall_ms!r} ms/batch wall, so the "
+            f"device is busy {run['busy_share']!r} of it; table in "
+            f"build/profiles/{fname}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available; this "
+                         "check runs the port on a GPU only")
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
+        f", CUDA {torch.version.cuda}")
+    log(f"card: {card}")
+
+    from elfi_tpu_torch.ops.kernels import _build
+    from elfi_tpu_torch.ops.kernels import ma2 as k1
+    t0 = time.perf_counter()
+    k1._lib()
+    log(f"built K1 in {time.perf_counter() - t0!r} s "
+        f"(nvcc {_build.build_log['ma2_distance']['seconds']!r} s)")
+    log(_build.build_log["ma2_distance"]["log"].strip())
+
+    kernel = phase_kernel_checks(device)
+    phase_fused_equals_batchwise(device)
+    main_path = phase_main_path(device)
+    phase_profile(device, main_path)
+
+    log(json.dumps({"main_path": main_path,
+                    "merge_ms": {k: v for k, v in kernel.items()
+                                 if k.startswith("merge_ms")},
+                    "card": card}))
+    log(json.dumps({"kernels": [{
+        "name": "ma2_distance",
+        "route": "cuda",
+        "source": "elfi_tpu_torch/csrc/ma2_distance.cu",
+        "replaces": "elfi_tpu/ops/pallas_kernels.py:71",
+        "launches": main_path["kernel graph"]["launches"],
+        "max_abs_err": kernel["max_abs_err"],
+        "ms": kernel["ms"],
+        "plain_ms": kernel["plain_ms"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

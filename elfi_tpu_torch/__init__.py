@@ -1,0 +1,20 @@
+"""elfi_tpu_torch -- the PyTorch / CUDA port of ``elfi_tpu``.
+
+The port mirrors the JAX package's module layout and public names; its
+code is plain PyTorch on tensors with an explicit device and explicit
+``torch.Generator`` streams, plus hand-written CUDA kernels where the JAX
+package had Pallas kernels.  It never imports JAX or ``elfi_tpu``.
+
+So far it covers the MA2 rejection-ABC slice: the model DSL, the per-batch
+program, the native backend, ``Rejection`` with its fused loop, the top-N
+merge, and the MA2 models with the fused MA2 distance kernel.
+"""
+
+from .model import (Constant, Distance, Model, Operation, Prior,  # noqa: F401
+                    Simulator, Summary)
+from .ops.distributions import Distribution  # noqa: F401
+from .parallel import (NativeBackend, get_client, reset_client,  # noqa: F401
+                       set_client)
+from .methods import Rejection, Sample  # noqa: F401
+
+__version__ = "0.1.0"

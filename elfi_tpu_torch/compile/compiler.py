@@ -1,0 +1,196 @@
+"""DAG -> per-batch program (counterpart of :mod:`elfi_tpu.compile.compiler`).
+
+The declared model is topologically sorted once into a function
+
+    ``fn(seed, batch_index, overrides) -> {output: (batch, ...) tensor}``
+
+that calls every needed node's op in order on the program's device.  There
+is no tracing: PyTorch runs eagerly, and on a CUDA device every op is an
+asynchronous launch, so calling ``fn`` does not wait for the device.
+
+- Only ancestors of the requested outputs run, and the walk stops at
+  overridden nodes.
+- Observed values are computed once per program and kept as tensors on the
+  device.
+- RNG: a stochastic node gets ``generator=``, a ``torch.Generator`` on the
+  device seeded with ``stream_seed(seed, batch_index, node_uid(name))``
+  (:mod:`elfi_tpu_torch.utils.rng`).  ``generator.initial_seed()`` is that
+  64-bit integer, for ops (such as the MA2 kernel) that seed their own
+  generator with it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..model.model import node_uid
+from ..utils import to_tensor
+from ..utils.rng import generator, stream_seed
+
+__all__ = ["compile_program", "CompiledProgram"]
+
+
+def compile_program(model, outputs, override_names=(), device="cpu"):
+    """Return a (cached) :class:`CompiledProgram` for ``outputs`` of
+    ``model`` on ``device`` with the given set of overridable node names."""
+    outputs = tuple(outputs)
+    override_names = tuple(sorted(override_names))
+    device = torch.device(device)
+    cache = model.__dict__.setdefault("_program_cache", {})
+    key = (model.revision, outputs, override_names, str(device))
+    if key in cache:
+        cache[key] = cache.pop(key)      # LRU: hot entries move to the end
+    else:
+        cache[key] = CompiledProgram(model, outputs, override_names, device)
+        # the cache is shared between a model and its copies: bound its
+        # size, evicting the oldest-touched entry and never the new one
+        while len(cache) > 64:
+            cache.pop(next(k for k in cache if k != key))
+    return cache[key]
+
+
+class CompiledProgram:
+    def __init__(self, model, outputs, override_names=(), device="cpu"):
+        self.model = model
+        self.outputs = tuple(outputs)
+        self.override_names = frozenset(override_names)
+        self.device = torch.device(device)
+        for o in self.outputs:
+            if o not in model.dag:
+                raise ValueError(f"Unknown output node {o!r}")
+        # a typo'd override name would otherwise pass the runtime guards
+        # (it IS declared) yet never be consumed
+        for o in override_names:
+            if o not in model.dag:
+                raise ValueError(f"Unknown override node {o!r}")
+        # ancestors of outputs, not descending past overridden nodes
+        needed, stack = set(), list(self.outputs)
+        while stack:
+            n = stack.pop()
+            if n in needed:
+                continue
+            needed.add(n)
+            if n not in self.override_names:
+                stack.extend(model.dag.parents(n))
+        self.order = [n for n in model.dag.topological_order(self.outputs)
+                      if n in needed]
+        self.host = any(model.dag.get_state(n).get("host", False)
+                        for n in self.order)
+        self._observed = {}
+        self._traceables = {}
+
+    # -- observed subgraph (computed once, kept on the device) ---------------
+    def observed_value(self, name):
+        """Observed value of an observable node, batch axis of length 1."""
+        if name in self._observed:
+            return self._observed[name]
+        dag = self.model.dag
+        st = dag.get_state(name)
+        if name in self.model.observed:
+            val = to_tensor(self.model.observed[name], self.device)[None]
+        elif st["kind"] == "constant":
+            val = st["value"]
+        elif st["kind"] in ("summary", "operation") and not st.get("stochastic"):
+            parents = [self.observed_value(p) for p in dag.parents(name)]
+            val = st["op"](*parents)
+        else:
+            raise ValueError(
+                f"Cannot compute observed value for node {name!r}: no "
+                f"observed data was given for its simulator ancestors.")
+        self._observed[name] = val
+        return val
+
+    # -- the per-batch function ----------------------------------------------
+    def traceable(self, batch_size):
+        """Function ``(seed, batch_index, overrides_dict) -> {output:
+        tensor}``, cached per batch size.  Named after the JAX package's
+        method; it is what both the batch-at-a-time and the fused paths
+        call."""
+        cached = self._traceables.get(batch_size)
+        if cached is not None:
+            return cached
+        dag = self.model.dag
+        order = self.order
+        states = {n: dag.get_state(n) for n in order}
+        parent_lists = {n: dag.parents(n) for n in order}
+        observed_args = {
+            n: tuple(self.observed_value(p) for p in parent_lists[n])
+            for n in order if states[n].get("uses_observed")}
+        uids = {n: node_uid(n) for n in order}
+        model_name = self.model.name
+        override_names = self.override_names
+        device = self.device
+
+        def fn(seed, batch_index, overrides):
+            unknown = set(overrides) - override_names
+            if unknown:
+                raise ValueError(
+                    f"Overrides {sorted(unknown)} were not declared at "
+                    f"compile time (declared: {sorted(override_names)}); "
+                    "undeclared overrides would be silently ignored -- "
+                    "compile with override_names including them")
+            meta = {"batch_index": batch_index, "batch_size": batch_size,
+                    "model_name": model_name, "submission_index": batch_index}
+
+            def gen(name):
+                return generator(stream_seed(seed, batch_index, uids[name]),
+                                 device)
+
+            vals = {}
+            for name in order:
+                if name in override_names:
+                    v = to_tensor(overrides[name], device)
+                    # scalar overrides broadcast over the batch (e.g.
+                    # fixed-theta simulation sweeps)
+                    vals[name] = v.expand(batch_size) if v.ndim == 0 else v
+                    continue
+                st = states[name]
+                parents = [vals[p] for p in parent_lists[name]]
+                kind = st["kind"]
+                if kind == "constant":
+                    vals[name] = st["value"]
+                elif kind == "rv":
+                    size = st.get("size")
+                    if size:
+                        total = batch_size * int(np.prod(size))
+                        draw = st["distribution"].rvs(
+                            *parents, size=total, generator=gen(name))
+                        vals[name] = draw.reshape((batch_size,) + tuple(size))
+                    else:
+                        vals[name] = st["distribution"].rvs(
+                            *parents, size=batch_size, generator=gen(name))
+                elif kind == "simulator":
+                    vals[name] = st["op"](*parents, batch_size=batch_size,
+                                          generator=gen(name))
+                elif kind == "discrepancy":
+                    vals[name] = st["op"](*parents,
+                                          observed=observed_args[name])
+                else:  # summary / operation
+                    kwargs = {}
+                    if st.get("stochastic"):
+                        kwargs["generator"] = gen(name)
+                    if st.get("uses_batch_size"):
+                        kwargs["batch_size"] = batch_size
+                    if st.get("uses_meta"):
+                        kwargs["meta"] = meta
+                    vals[name] = st["op"](*parents, **kwargs)
+            return {o: vals[o] for o in self.outputs}
+
+        self._traceables[batch_size] = fn
+        return fn
+
+    # -- entry point -----------------------------------------------------------
+    def run(self, seed, batch_index, overrides=None, batch_size=1):
+        overrides = dict(overrides or {})
+        unknown = set(overrides) - self.override_names
+        if unknown:
+            raise ValueError(
+                f"Overrides {sorted(unknown)} were not declared at compile "
+                f"time (declared: {sorted(self.override_names)}); compile "
+                "with override_names including them")
+        if self.host:
+            raise NotImplementedError(
+                "graphs with host=True nodes need the host executor, which "
+                "the PyTorch port does not have yet")
+        return self.traceable(batch_size)(seed, int(batch_index), overrides)

@@ -1,0 +1,199 @@
+"""Base classes for inference methods (counterpart of
+:mod:`elfi_tpu.methods.base`).
+
+The iterate loop submits up to ``max_parallel_batches`` batches, consumes
+them strictly in order and updates the state.  A "parallel batch" is a
+program whose ops are queued on the device, so submission overlaps
+host-side bookkeeping with device compute.
+"""
+
+from __future__ import annotations
+
+from math import ceil
+
+import torch
+
+from ..model.model import ComputationContext, Model, NodeReference
+from ..parallel.backends import get_client
+from ..parallel.batches import BatchHandler
+
+__all__ = ["ParameterInference", "Sampler"]
+
+
+class ParameterInference:
+    """Base inference loop.
+
+    ``device`` is where every program of the inference runs; by default the
+    global backend's device (a CPU :class:`NativeBackend` unless one was
+    set).  A requested device is used as given, never replaced.
+    """
+
+    def __init__(self, model, output_names, batch_size=1, seed=None,
+                 max_parallel_batches=None, device=None):
+        model = model.model if isinstance(model, NodeReference) else model
+        if not model.parameter_names:
+            raise ValueError(f"Model {model.name} defines no parameters")
+
+        self.model = model.copy()
+        self.output_names = self._check_outputs(output_names)
+        self.client = get_client()
+        self.device = torch.device(device if device is not None
+                                   else self.client.device)
+        self.computation_context = ComputationContext(batch_size=batch_size,
+                                                      seed=seed)
+        self.batches = BatchHandler(self.model,
+                                    context=self.computation_context,
+                                    output_names=self.output_names,
+                                    client=self.client, device=self.device)
+        self.max_parallel_batches = max_parallel_batches or \
+            max(1, self.client.num_cores)
+        self.state = dict(n_sim=0, n_batches=0)
+        self.objective = dict()
+        self.bar = True
+
+    # -- properties ----------------------------------------------------------
+    @property
+    def seed(self):
+        return self.computation_context.seed
+
+    @property
+    def parameter_names(self):
+        return self.model.parameter_names
+
+    @property
+    def batch_size(self):
+        return self.computation_context.batch_size
+
+    # -- to override -----------------------------------------------------------
+    def set_objective(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def extract_result(self):
+        raise NotImplementedError
+
+    def update(self, batch, batch_index):
+        self.state["n_batches"] += 1
+        self.state["n_sim"] += self.batch_size
+
+    def prepare_new_batch(self, batch_index):
+        return None
+
+    # -- the loop ---------------------------------------------------------------
+    def infer(self, *args, bar=True, **kwargs):
+        """Run the inference loop batch at a time."""
+        self.bar = bar
+        self.set_objective(*args, **kwargs)
+        pb = _ProgressBar() if bar else None
+        while not self.finished:
+            self.iterate()
+            if pb:
+                pb.update(self.state["n_batches"], self._objective_n_batches)
+        self.batches.cancel_pending()
+        if pb:
+            pb.finish()
+        return self.extract_result()
+
+    def iterate(self):
+        """One iteration: submit while allowed, then consume the next batch
+        in submission order."""
+        while self._allow_submit(self.batches.next_index):
+            next_batch = self.prepare_new_batch(self.batches.next_index)
+            self.batches.submit(next_batch)
+        batch, batch_index = self.batches.wait_next()
+        self.update(batch, batch_index)
+
+    @property
+    def finished(self):
+        return self._objective_n_batches <= self.state["n_batches"]
+
+    def _allow_submit(self, batch_index):
+        return (self.max_parallel_batches > self.batches.num_pending
+                and self._has_batches_to_submit
+                and not self.batches.has_ready())
+
+    @property
+    def _has_batches_to_submit(self):
+        return self._objective_n_batches > \
+            self.state["n_batches"] + self.batches.num_pending
+
+    @property
+    def _objective_n_batches(self):
+        if "n_batches" in self.objective:
+            return self.objective["n_batches"]
+        if "n_sim" in self.objective:
+            return ceil(self.objective["n_sim"] / self.batch_size)
+        raise ValueError("Objective must define n_batches or n_sim")
+
+    def _extract_result_kwargs(self):
+        return {
+            "method_name": type(self).__name__,
+            "parameter_names": self.parameter_names,
+            "seed": self.seed,
+            "n_sim": self.state["n_sim"],
+            "n_batches": self.state["n_batches"],
+        }
+
+    # -- helpers ---------------------------------------------------------------
+    @staticmethod
+    def _resolve_model(model, target, default_reference_class=NodeReference):
+        if isinstance(model, Model) and target is None:
+            raise ValueError("Specify the target node of the inference")
+        if isinstance(model, NodeReference):
+            target = model
+            model = target.model
+        if isinstance(target, str):
+            target = model[target]
+        if not isinstance(target, default_reference_class):
+            raise ValueError("Unknown target node class")
+        return model, target.name
+
+    def _check_outputs(self, output_names):
+        checked, seen = [], set()
+        for name in output_names or []:
+            if isinstance(name, NodeReference):
+                name = name.name
+            if name in seen:
+                continue
+            if not isinstance(name, str):
+                raise ValueError(f"Output name {name!r} is not a string")
+            if name not in self.model:
+                raise ValueError(f"Node {name!r} is not in the model")
+            seen.add(name)
+            checked.append(name)
+        return checked
+
+
+class Sampler(ParameterInference):
+    """Adds ``sample()`` sugar."""
+
+    def sample(self, n_samples, *args, **kwargs):
+        bar = kwargs.pop("bar", True)
+        self.bar = bar
+        return self.infer(n_samples, *args, bar=bar, **kwargs)
+
+    def _extract_result_kwargs(self):
+        kwargs = super()._extract_result_kwargs()
+        for k in ("threshold", "accept_rate"):
+            if k in self.state:
+                kwargs[k] = self.state[k]
+        if hasattr(self, "discrepancy_name"):
+            kwargs["discrepancy_name"] = self.discrepancy_name
+        return kwargs
+
+
+class _ProgressBar:
+    """Minimal textual progress bar."""
+
+    def __init__(self, length=50):
+        self.length = length
+
+    def update(self, n, total):
+        total = max(total, 1)
+        frac = min(n / total, 1.0)
+        filled = int(self.length * frac)
+        bar = "=" * filled + "-" * (self.length - filled)
+        print(f"\rProgress [{bar}] {100 * frac:.1f}% Complete",
+              end="", flush=True)
+
+    def finish(self):
+        print()

@@ -1,0 +1,331 @@
+"""Generative model container and node DSL (counterpart of
+:mod:`elfi_tpu.model.model`).
+
+Node reference objects write state dicts into a
+:class:`~elfi_tpu_torch.dag.DAG`; the compiler then walks the declared graph
+in topological order, calling each node's op on batch-first tensors.
+
+RNG: every stochastic node receives a ``torch.Generator`` seeded with its
+own 64-bit stream seed, derived from (master seed, batch index, node uid)
+by :func:`elfi_tpu_torch.utils.rng.stream_seed` -- the same structure as the
+JAX package's ``fold_in(fold_in(key, batch_index), node_uid)``.
+"""
+
+from __future__ import annotations
+
+import re
+import traceback
+import zlib
+
+import numpy as np
+import torch
+
+from ..dag import DAG
+from ..ops import distributions as dists
+
+__all__ = [
+    "Model", "ComputationContext", "new_model", "get_default_model",
+    "set_default_model", "Constant", "Operation", "RandomVariable", "Prior",
+    "Simulator", "Summary", "Discrepancy", "Distance", "NodeReference",
+    "node_uid",
+]
+
+_default_model = None
+
+
+def get_default_model():
+    """Return the current default model."""
+    global _default_model
+    if _default_model is None:
+        _default_model = Model()
+    return _default_model
+
+
+def set_default_model(model=None):
+    global _default_model
+    if model is not None and not isinstance(model, Model):
+        raise TypeError("set_default_model expects a Model or None")
+    _default_model = model
+
+
+def new_model(name=None, set_default=True):
+    m = Model(name=name)
+    if set_default:
+        set_default_model(m)
+    return m
+
+
+def node_uid(name):
+    """Stable 31-bit id for per-node RNG stream derivation (the JAX
+    package's, unchanged)."""
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
+
+
+class ComputationContext:
+    """Per-inference execution bundle: batch size and the integer master
+    seed from which every stream seed is derived."""
+
+    def __init__(self, batch_size=None, seed=None):
+        if seed is None or seed == "global":
+            # draw from the global numpy state so unseeded runs differ
+            seed = int(np.random.randint(0, 2**31 - 1))
+        self.batch_size = int(batch_size or 1)
+        self.seed = int(seed)
+        self.num_submissions = 0
+
+
+class Model:
+    """Container for a generative model."""
+
+    def __init__(self, name=None, observed=None):
+        self.name = name or f"model_{np.random.randint(10**6)}"
+        self.dag = DAG()
+        self.observed = dict(observed or {})
+
+    # -- structure ---------------------------------------------------------
+    def __getitem__(self, name):
+        if name not in self.dag:
+            raise KeyError(f"No node named {name!r} in model {self.name!r}")
+        return NodeReference.reference(name, self)
+
+    def __contains__(self, name):
+        return name in self.dag
+
+    @property
+    def nodes(self):
+        return list(self.dag.nodes)
+
+    @property
+    def parameter_names(self):
+        """Alphabetically sorted parameter node names (deterministic order
+        used for flat-array packing)."""
+        return sorted(n for n, s in self.dag.nodes.items()
+                      if s.get("parameter", False))
+
+    @property
+    def observed_node_names(self):
+        return sorted(self.observed)
+
+    def update_node(self, name, **state):
+        self.dag.update_state(name, **state)
+        self._invalidate_cache()
+
+    def remove_node(self, name):
+        self.dag.remove_node(name)
+        self.observed.pop(name, None)
+        self._invalidate_cache()
+
+    # revisions are globally unique so structurally identical model copies
+    # can share one compiled-program cache (inference objects copy the model)
+    _REVISION_COUNTER = 0
+
+    def copy(self, name=None):
+        m = Model.__new__(Model)
+        m.name = name or f"{self.name}_copy"
+        m.dag = self.dag.copy()
+        m.observed = dict(self.observed)
+        m._revision = self.revision
+        m._program_cache = self.__dict__.setdefault("_program_cache", {})
+        return m
+
+    def _invalidate_cache(self):
+        Model._REVISION_COUNTER += 1
+        self._revision = Model._REVISION_COUNTER
+
+    @property
+    def revision(self):
+        return getattr(self, "_revision", 0)
+
+    # -- execution ---------------------------------------------------------
+    def generate(self, batch_size=1, outputs=None, with_values=None,
+                 seed=None, device="cpu"):
+        """Compute one batch on ``device``; returns a dict of numpy
+        arrays."""
+        from ..compile.compiler import compile_program
+
+        if outputs is None:
+            outputs = sorted(self.dag.nodes)
+        elif isinstance(outputs, str):
+            outputs = [outputs]
+        context = ComputationContext(batch_size=batch_size, seed=seed)
+        prog = compile_program(self, tuple(outputs),
+                               override_names=tuple(sorted(with_values or ())),
+                               device=device)
+        out = prog.run(context.seed, batch_index=0,
+                       overrides=with_values or {},
+                       batch_size=context.batch_size)
+        return {k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Node DSL
+# ---------------------------------------------------------------------------
+
+_ASSIGN_RE = re.compile(r"^\s*(\w+)\s*=")
+
+
+def _inspect_name():
+    """Best-effort auto-naming from the assignment statement: walk outward
+    past all frames of this module to the user's call site."""
+    for frame in reversed(traceback.extract_stack()):
+        if frame.filename == __file__:
+            continue
+        m = _ASSIGN_RE.match(frame.line or "")
+        return m.group(1) if m else None
+    return None
+
+
+class NodeReference:
+    """Handle to a node in a :class:`Model`; constructing one writes the
+    node's state dict and parent edges into the model DAG."""
+
+    kind = "node"
+
+    def __init__(self, *parents, name=None, model=None, state=None):
+        model = model if model is not None else get_default_model()
+        if name is None:
+            name = _inspect_name()
+        if name is None or name in model.dag:
+            base = name or f"_{type(self).__name__.lower()}"
+            name = f"{base}_{len(model.dag.nodes)}_{np.random.randint(10**6)}"
+        state = dict(state or {})
+        state.setdefault("kind", self.kind)
+        state["_class"] = type(self)
+        model.dag.add_node(name, state)
+        self.name = name
+        self.model = model
+        for p in parents:
+            pref = p if isinstance(p, NodeReference) else \
+                Constant(p, model=model, name=f"_{name}_{len(model.dag.parents(name))}")
+            model.dag.add_edge(pref.name, name)
+        model._invalidate_cache()
+
+    @classmethod
+    def reference(cls, name, model):
+        state = model.dag.get_state(name)
+        klass = state.get("_class", NodeReference)
+        obj = klass.__new__(klass)
+        obj.name = name
+        obj.model = model
+        return obj
+
+    @property
+    def state(self):
+        return self.model.dag.get_state(self.name)
+
+    @property
+    def parents(self):
+        return [self.model[p] for p in self.model.dag.parents(self.name)]
+
+    def generate(self, batch_size=1, with_values=None, seed=None,
+                 device="cpu"):
+        out = self.model.generate(batch_size, outputs=[self.name],
+                                  with_values=with_values, seed=seed,
+                                  device=device)
+        return out[self.name]
+
+    def __repr__(self):
+        return f"{type(self).__name__}(name={self.name!r})"
+
+    def __str__(self):
+        return self.name
+
+
+class Constant(NodeReference):
+    """A constant value node."""
+    kind = "constant"
+
+    def __init__(self, value, **kwargs):
+        super().__init__(state={"value": value}, **kwargs)
+
+
+class Operation(NodeReference):
+    """Deterministic (or explicitly stochastic) operation on parent outputs.
+
+    ``fn(*parents)`` by default; with ``stochastic=True`` it also receives
+    ``generator=``, with ``uses_batch_size=True`` also ``batch_size=``, and
+    with ``uses_meta=True`` also ``meta=`` (dict with ``batch_index`` etc.).
+    ``host=True`` marks a numpy-only function; the host executor that runs
+    such graphs is not ported yet.
+    """
+    kind = "operation"
+
+    def __init__(self, fn, *parents, stochastic=False, uses_batch_size=False,
+                 uses_meta=False, host=False, **kwargs):
+        state = {"op": fn, "stochastic": stochastic,
+                 "uses_batch_size": uses_batch_size, "uses_meta": uses_meta,
+                 "host": host}
+        super().__init__(*parents, state=state, **kwargs)
+
+
+class RandomVariable(NodeReference):
+    """Draws from a distribution; parents are distribution parameters."""
+    kind = "rv"
+
+    def __init__(self, distribution, *params, size=None, **kwargs):
+        if isinstance(distribution, str):
+            distribution = dists.from_name(distribution)
+        state = {"distribution": distribution, "size": size,
+                 "stochastic": True,
+                 "host": bool(getattr(distribution, "host", False))}
+        super().__init__(*params, state=state, **kwargs)
+
+    @property
+    def distribution(self):
+        return self.state["distribution"]
+
+
+class Prior(RandomVariable):
+    """A RandomVariable marked as a model parameter."""
+
+    def __init__(self, distribution, *params, size=None, **kwargs):
+        super().__init__(distribution, *params, size=size, **kwargs)
+        self.model.dag.update_state(self.name, parameter=True)
+
+
+class Simulator(NodeReference):
+    """The stochastic simulator: ``fn(*params, batch_size=B, generator=g)``
+    returns a batch-first tensor on ``g``'s device."""
+    kind = "simulator"
+
+    def __init__(self, fn, *params, observed=None, host=False, **kwargs):
+        state = {"op": fn, "stochastic": True, "observable": True,
+                 "uses_batch_size": True, "host": host}
+        super().__init__(*params, state=state, **kwargs)
+        if observed is not None:
+            self.model.observed[self.name] = np.asarray(observed)
+
+    @property
+    def observed(self):
+        return self.model.observed.get(self.name)
+
+
+class Summary(NodeReference):
+    """Pure summary statistic ``fn(*parents) -> (batch, ...)``."""
+    kind = "summary"
+
+    def __init__(self, fn, *parents, host=False, **kwargs):
+        state = {"op": fn, "observable": True, "host": host}
+        super().__init__(*parents, state=state, **kwargs)
+
+
+class Discrepancy(NodeReference):
+    """Custom discrepancy ``fn(*summaries, observed=tuple) -> (batch,)``."""
+    kind = "discrepancy"
+
+    def __init__(self, fn, *parents, host=False, **kwargs):
+        state = {"op": fn, "uses_observed": True, "host": host}
+        super().__init__(*parents, state=state, **kwargs)
+
+
+class Distance(Discrepancy):
+    """Built-in vectorised distance between summary vectors and observed
+    (metrics from :mod:`elfi_tpu_torch.ops.distances`)."""
+
+    def __init__(self, metric, *summaries, w=None, **kwargs):
+        from ..ops.distances import distance_op
+        if not summaries:
+            raise ValueError("Distance requires at least one summary parent")
+        super().__init__(distance_op(metric, w=w), *summaries, **kwargs)
+        self.model.dag.update_state(self.name, metric=metric)

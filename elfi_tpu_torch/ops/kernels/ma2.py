@@ -1,0 +1,161 @@
+"""Fused MA2 simulate -> summarise -> distance: the wrapper of the CUDA
+kernel ``csrc/ma2_distance.cu`` and its plain PyTorch version.
+
+Counterpart of :func:`elfi_tpu.ops.pallas_kernels.ma2_distance`.  The
+wrapper launches the kernel for CUDA tensors and raises if it cannot; it
+runs the plain version only for CPU tensors.  ``ma2_distance.launches``
+counts the kernel launches, so a run can show it went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+__all__ = ["ma2_distance", "ma2_distance_noise", "ma2_distance_reference"]
+
+_LIB = "ma2_distance"
+_SOURCES = ("ma2_distance.cu",)
+_P = ctypes.c_void_p
+
+
+@functools.cache
+def _lib():
+    """Build (at first use) and bind the kernel library."""
+    lib = _build.load(_LIB, _SOURCES)
+    lib.elfi_ma2_distance.argtypes = [
+        _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_ulonglong, ctypes.c_int, _P]
+    lib.elfi_ma2_distance.restype = ctypes.c_int
+    lib.elfi_ma2_distance_noise.argtypes = [
+        _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, _P]
+    lib.elfi_ma2_distance_noise.restype = ctypes.c_int
+    lib.elfi_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.elfi_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_tensor(name, x, shape, device):
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"{name} must be a torch.Tensor, got {type(x)}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check(t1, t2, obs, n_obs, batch_size, noise=None):
+    """Validate the kernel's contract; returns the common device."""
+    if not isinstance(n_obs, int) or n_obs < 3:
+        raise ValueError(f"n_obs must be an int >= 3, got {n_obs!r}")
+    if not isinstance(batch_size, int) or batch_size < 1:
+        raise ValueError(f"batch_size must be an int >= 1, got "
+                         f"{batch_size!r}")
+    if not isinstance(t1, torch.Tensor):
+        raise ValueError(f"t1 must be a torch.Tensor, got {type(t1)}")
+    device = t1.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    _check_tensor("t1", t1, (batch_size,), device)
+    _check_tensor("t2", t2, (batch_size,), device)
+    _check_tensor("observed_autocovs", obs, (2,), device)
+    if noise is not None:
+        _check_tensor("noise", noise, (batch_size, n_obs + 2), device)
+    return device
+
+
+def _raise_on(rc, lib, entry):
+    if rc != 0:
+        msg = lib.elfi_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
+
+
+def ma2_distance_reference(t1, t2, obs, n_obs, batch_size, generator=None,
+                           noise=None):
+    """Plain PyTorch version: draw w (or take ``noise``), filter, take the
+    lag-1/lag-2 autocovariances and the euclidean distance to ``obs`` --
+    the JAX package's ``MA2`` + ``autocov`` + euclidean.
+
+    The series and the lag products are float32, rounded as the kernel
+    rounds them; the products are summed and the distance taken in float64,
+    as the kernel does.  A float32 mean summed in another order differs by
+    up to ~3e-4 relative where the distance is small, since ``d`` is then a
+    difference of nearly equal sums.
+    """
+    if noise is None:
+        noise = torch.randn((batch_size, n_obs + 2), generator=generator,
+                            device=t1.device)
+    t1 = t1.reshape(-1, 1)
+    t2 = t2.reshape(-1, 1)
+    x = noise[:, 2:] + t1 * noise[:, 1:-1] + t2 * noise[:, :-2]
+    s1 = (x[:, 1:] * x[:, :-1]).double().mean(dim=1)
+    s2 = (x[:, 2:] * x[:, :-2]).double().mean(dim=1)
+    obs = obs.double()
+    d1 = s1 - obs[0]
+    d2 = s2 - obs[1]
+    return torch.sqrt(d1 * d1 + d2 * d2).float()
+
+
+def ma2_distance(t1, t2, observed_autocovs, n_obs=100, batch_size=1,
+                 generator=None):
+    """Fused MA2 simulate+summarise+distance; returns (batch,) float32.
+
+    ``t1``, ``t2``: (batch_size,) float32; ``observed_autocovs``: (2,)
+    float32 observed (lag-1, lag-2) autocovariances; all contiguous on one
+    device.  On CUDA the kernel's Philox stream is keyed by
+    ``generator.initial_seed()``; on the CPU the plain version draws from
+    ``generator``.
+    """
+    device = _check(t1, t2, observed_autocovs, n_obs, batch_size)
+    if device.type == "cpu":
+        return ma2_distance_reference(t1, t2, observed_autocovs, n_obs,
+                                      batch_size, generator=generator)
+    if generator is None:
+        raise ValueError("on CUDA ma2_distance needs a generator: its "
+                         "initial_seed() keys the kernel's Philox stream")
+    lib = _lib()
+    out = torch.empty(batch_size, dtype=torch.float32, device=device)
+    rc = lib.elfi_ma2_distance(
+        t1.data_ptr(), t2.data_ptr(), observed_autocovs.data_ptr(),
+        out.data_ptr(), batch_size, n_obs, generator.initial_seed(),
+        device.index, torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, lib, "elfi_ma2_distance")
+    ma2_distance.launches += 1
+    return out
+
+
+ma2_distance.launches = 0
+
+
+def ma2_distance_noise(t1, t2, observed_autocovs, noise):
+    """The kernel's noise-injection entry: the same filter, summaries and
+    distance on a given ``noise`` (batch, n_obs + 2) instead of its own
+    draws.  It exists to hold the kernel's arithmetic against the plain
+    version exactly."""
+    batch_size, n_obs = int(t1.shape[0]), int(noise.shape[1]) - 2
+    device = _check(t1, t2, observed_autocovs, n_obs, batch_size, noise)
+    if device.type == "cpu":
+        return ma2_distance_reference(t1, t2, observed_autocovs, n_obs,
+                                      batch_size, noise=noise)
+    lib = _lib()
+    out = torch.empty(batch_size, dtype=torch.float32, device=device)
+    rc = lib.elfi_ma2_distance_noise(
+        t1.data_ptr(), t2.data_ptr(), observed_autocovs.data_ptr(),
+        noise.data_ptr(), out.data_ptr(), batch_size, n_obs, device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, lib, "elfi_ma2_distance_noise")
+    ma2_distance_noise.launches += 1
+    return out
+
+
+ma2_distance_noise.launches = 0

@@ -1,0 +1,156 @@
+"""MA2 rejection-ABC end to end in the PyTorch port, on the CPU: the fused
+and batch-at-a-time loops agree bit for bit, both MA2 graphs pass the JAX
+package's accuracy gate on its own observed data, and the committed observed
+data is the JAX package's draw."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+import elfi_tpu_torch as et
+from elfi_tpu.models import ma2 as jax_ma2
+from elfi_tpu_torch.models import ma2, ma2_kernel
+
+TRUE = np.array([0.6, 0.2])
+MODELS = {"plain": ma2, "kernel": ma2_kernel}
+
+
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    et.reset_client()
+    yield
+    et.reset_client()
+
+
+def _check(res, atol=0.05):
+    means = np.array([np.mean(res.samples[k]) for k in ("t1", "t2")])
+    err = np.abs(means - TRUE)
+    assert np.all(err < atol), f"posterior means {means}, err {err}"
+
+
+@pytest.mark.parametrize("graph", sorted(MODELS))
+def test_ma2_gate(graph):
+    """The gate of tests/functional/test_inference.py at seed_obs=271."""
+    m = MODELS[graph].get_model(seed_obs=271)
+    rej = et.Rejection(m["d"], batch_size=1 << 14, seed=1, device="cpu")
+    res = rej.sample(1000, n_sim=1 << 19, bar=False)
+    assert res.n_sim == 1 << 19 and res.n_batches == 32
+    assert res.outputs["d"].shape == (1000,)
+    assert np.all(np.diff(res.outputs["d"]) >= 0)
+    assert res.threshold == res.outputs["d"][-1]
+    _check(res)
+
+
+@pytest.mark.parametrize("graph", sorted(MODELS))
+@pytest.mark.parametrize("objective", [dict(n_sim=6 * 4096),
+                                       dict(quantile=0.05)])
+def test_fused_equals_batch_at_a_time(graph, objective):
+    m = MODELS[graph].get_model(seed_obs=4)
+    kw = dict(batch_size=4096, seed=7, device="cpu")
+    a = et.Rejection(m["d"], **kw).sample(300, bar=False, **objective)
+    b = et.Rejection(m["d"], **kw).sample(300, bar=False, fused=False,
+                                          **objective)
+    assert a.n_sim == b.n_sim and a.n_batches == b.n_batches
+    assert sorted(a.outputs) == sorted(b.outputs)
+    for k in a.outputs:
+        np.testing.assert_array_equal(a.outputs[k], b.outputs[k], err_msg=k)
+
+
+def test_seed_determinism_and_sensitivity():
+    m = ma2.get_model(seed_obs=4)
+
+    def run(seed):
+        return et.Rejection(m["d"], batch_size=2048, seed=seed).sample(
+            100, n_sim=4 * 2048, bar=False).outputs["t1"]
+
+    np.testing.assert_array_equal(run(3), run(3))
+    assert not np.array_equal(run(3), run(4))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_threshold_objective(fused):
+    m = ma2.get_model(seed_obs=271)
+    rej = et.Rejection(m["d"], batch_size=1 << 14, seed=2)
+    res = rej.sample(200, threshold=0.1, fused=fused, bar=False)
+    assert res.outputs["d"].shape == (200,)
+    assert np.all(res.outputs["d"] <= 0.1)
+    assert res.n_sim == res.n_batches * (1 << 14)
+    _check(res, atol=0.1)
+
+
+def test_extra_outputs_and_progress_bar(capsys):
+    m = ma2.get_model(seed_obs=4)
+    rej = et.Rejection(m["d"], batch_size=1024, seed=0,
+                       output_names=["S1", "S2"])
+    res = rej.sample(50, n_sim=4096)
+    assert "Progress" in capsys.readouterr().out
+    assert res.outputs["S1"].shape == (50,)
+    assert set(res.samples) == {"t1", "t2"}
+    assert res.samples_array.shape == (50, 2)
+    assert res.discrepancies.shape == (50,)
+    assert "Number of samples: 50" in str(res)
+
+
+def test_requested_device_is_kept():
+    """A requested device is used as given, never replaced by the CPU."""
+    m = ma2.get_model(seed_obs=4)
+    et.set_client(et.NativeBackend(device="cuda"))
+    assert et.Rejection(m["d"], batch_size=8).device.type == "cuda"
+    assert et.Rejection(m["d"], batch_size=8,
+                        device="cpu").device.type == "cpu"
+    et.set_client("native")
+    assert et.get_client().device.type == "cpu"
+    with pytest.raises(ValueError):
+        et.set_client("sharded")
+
+
+@pytest.mark.parametrize("seed_obs", [0, 4, 271])
+def test_committed_observed_data_is_the_jax_draw(seed_obs):
+    y = np.asarray(jax_ma2.MA2(jnp.asarray([.6]), jnp.asarray([.2]),
+                               n_obs=100, batch_size=1,
+                               key=jax.random.key(seed_obs)))[0]
+    stored = ma2.observed_data(seed_obs=seed_obs)
+    np.testing.assert_array_equal(stored, y)
+    assert stored.dtype == y.dtype
+    m_t, m_j = ma2.get_model(seed_obs=seed_obs), \
+        jax_ma2.get_model(seed_obs=seed_obs)
+    np.testing.assert_array_equal(m_t.observed["MA2"], m_j.observed["MA2"])
+
+
+def test_unstored_observed_data_raises():
+    with pytest.raises(ValueError, match="stored"):
+        ma2.get_model(seed_obs=5)
+    with pytest.raises(ValueError):
+        ma2.get_model(n_obs=50)
+    with pytest.raises(ValueError):
+        ma2_kernel.get_model(true_params=[0.5, 0.1])
+
+
+def test_kernel_graph_observed_autocovs_equal_jax():
+    from elfi_tpu.models import ma2_pallas
+    op_t = ma2_kernel.get_model(seed_obs=271).dag.get_state("d")["op"]
+    op_j = ma2_pallas.get_model(seed_obs=271).dag.get_state("d")["op"]
+    np.testing.assert_allclose(op_t.obs, op_j.obs, rtol=1e-6)
+    assert op_t.obs.dtype == op_j.obs.dtype == np.float32
+
+
+def test_kernel_graph_runs_through_the_wrapper(monkeypatch):
+    """The kernel graph's discrepancy node calls the kernel's wrapper once
+    per batch, with the node's own generator."""
+    import elfi_tpu_torch.models.ma2_kernel as mk
+    calls = []
+    real = mk.ma2_distance
+
+    def spy(t1, t2, obs, n_obs, batch_size, generator):
+        calls.append((batch_size, generator.initial_seed()))
+        return real(t1, t2, obs, n_obs=n_obs, batch_size=batch_size,
+                    generator=generator)
+
+    monkeypatch.setattr(mk, "ma2_distance", spy)
+    m = mk.get_model(seed_obs=4)
+    et.Rejection(m["d"], batch_size=1024, seed=0).sample(
+        10, n_sim=3 * 1024, bar=False)
+    assert [c[0] for c in calls] == [1024] * 3
+    assert len({c[1] for c in calls}) == 3
