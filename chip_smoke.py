@@ -9,20 +9,37 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. Require a CUDA device; print its name, its power limit and the CUDA
    version PyTorch was built with.
-2. Build the hand-written kernels from ``elfi_tpu_torch/csrc/`` with nvcc.
+2. Build the hand-written kernels from ``elfi_tpu_torch/csrc/`` with nvcc,
+   one nvcc process per kernel, all started together.
 3. Hold the MA2 distance kernel (K1) against its plain PyTorch version on
    the card: the same noise in both (max relative error <= 1e-5), the
    kernel's own Philox stream against ``torch.randn`` (mean and std of the
    distances within 0.02), determinism per seed, the fused rejection loop
    against the batch-at-a-time loop (bit-identical), and the time per call
    of the kernel, the plain version and the top-N merge.
-4. The main path on the plain graph: ``Rejection(ma2.get_model(...)["d"],
-   batch_size=2**17, device="cuda").sample(5000, n_sim=2048 * 2**17)``,
-   gated at |posterior mean - (0.6, 0.2)| < 0.05.
-5. The same on the kernel graph (``models.ma2_kernel``) at batch 2**21; the
-   kernel's launch count must equal the number of batches.
-6. Profile a few batches of each graph: device busy share of the wall time
-   and the time by kernel.
+4. The main path on the plain MA2 graph: ``Rejection(ma2.get_model(...)
+   ["d"], batch_size=2**17, device="cuda").sample(5000, n_sim=2048 *
+   2**17)``, gated at |posterior mean - (0.6, 0.2)| < 0.05.
+5. The same on the MA2 kernel graph (``models.ma2_kernel``) at batch 2**21;
+   K1's launch count must equal the number of batches.
+6. Hold the g-and-k distance kernel (K2) against its plain version: the
+   same normals at 2**16 and 2**21 simulations and n_obs 17, 50 and 64
+   (max relative error <= 1e-5), its sorting network against
+   ``torch.sort`` (exactly equal, +inf pads included), its own stream
+   against ``torch.randn`` (mean and median within 15 %), determinism per
+   seed, and the time per call of the kernel, its plain version and the
+   merge at 2**21.
+7. The main path on both g-and-k graphs (``models.gnk`` and
+   ``models.gnk_kernel``): ``sample(5000, n_sim=2**26)`` at batch 2**21
+   and n_obs 50, gated at (0.1, 0.1, 0.5, 0.05) from the JAX package's
+   posterior means for the same call; K2 must run 32 times on the kernel
+   graph and never on the plain one.
+8. The adaptive distance: g-and-k octiles with ``AdaptiveDistance``, batch
+   2**16, ``sample(1000, n_sim=2**20)``; two weight vectors, the second
+   finite and positive, sorted finite 1-D distances, one seed giving one
+   result, posterior means inside the prior.
+9. Profile a few batches of each graph: device busy share of the wall time
+   and the time by kernel (the top five printed, the table written).
 
 The last two lines are a JSON object describing each kernel and a JSON
 object ``{"ok": true, "device": {...}}``.
@@ -36,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +68,24 @@ PLAIN_BATCH = 2**17
 KERNEL_BATCH = 2**21
 N_OBS = 100
 OUT_DIR = Path(__file__).resolve().parent / "build" / "profiles"
+
+# g-and-k: scripts/gnk_ab.py's operating point (n_obs 50, 32 batches of
+# 2**21), on the observed sample of seed_obs=1
+GNK_BATCH = 2**21
+GNK_N_SIM = 2**26
+GNK_N_OBS = 50
+GNK_SEED_OBS = 1
+GNK_NAMES = ("A", "B", "g", "k")
+GNK_GATE = np.array([0.1, 0.1, 0.5, 0.05])
+# Posterior means (A, B, g, k) of the JAX package for the same call, on the
+# CPU:  python -c 'import jax; jax.config.update("jax_platforms", "cpu");
+#   import elfi_tpu as elfi; from elfi_tpu.models import gnk;
+#   m = gnk.get_model(n_obs=50, seed_obs=1);
+#   r = elfi.Rejection(m["d"], batch_size=2**21, seed=1).sample(
+#       5000, n_sim=2**26, bar=False);
+#   print([float(r.samples[k].mean()) for k in "ABgk"])'
+GNK_JAX_MEANS = np.array([3.417664051055908, 1.4710832834243774,
+                          4.9136834144592285, 0.509651243686676])
 
 
 def log(*args):
@@ -200,14 +236,13 @@ def phase_fused_equals_batchwise(device):
     log("fused == batch-at-a-time on the card, both graphs")
 
 
-def run_rejection(mod, batch_size, device):
-    """One rejection run of the main path; returns (sample, seconds)."""
+def timed_sample(node, batch_size, n_samples, n_sim, device, seed=1):
+    """One rejection run from ``node``; returns (sample, seconds)."""
     import elfi_tpu_torch as et
-    m = mod.get_model(seed_obs=SEED_OBS)
-    rej = et.Rejection(m["d"], batch_size=batch_size, seed=1, device=device)
+    rej = et.Rejection(node, batch_size=batch_size, seed=seed, device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = rej.sample(N_SAMPLES, n_sim=N_SIM, bar=False)
+    res = rej.sample(n_samples, n_sim=n_sim, bar=False)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
@@ -248,7 +283,8 @@ def phase_main_path(device):
             ("kernel graph", ma2_kernel, KERNEL_BATCH,
              math.ceil(N_SIM / KERNEL_BATCH))):
         ma2_distance.launches = 0
-        res, dt = run_rejection(mod, bs, device)
+        res, dt = timed_sample(mod.get_model(seed_obs=SEED_OBS)["d"], bs,
+                               N_SAMPLES, N_SIM, device)
         launches = ma2_distance.launches
         means = check_sample(res, bs, name)
         sims_s = res.n_sim / dt
@@ -262,6 +298,197 @@ def phase_main_path(device):
     return out
 
 
+def gnk_observed_sorted(n_obs, device):
+    """The sorted observed g-and-k sample at n_obs 50 (seed_obs 1); for the
+    other widths of the kernel checks, a sorted sample of N(3, 1)."""
+    from elfi_tpu_torch.models import gnk
+    if n_obs == GNK_N_OBS:
+        y = gnk.observed_data(n_obs=n_obs, seed_obs=GNK_SEED_OBS)
+    else:
+        y = np.random.default_rng(n_obs).normal(3.0, 1.0, n_obs)
+    return torch.tensor(np.sort(np.ravel(y)), dtype=torch.float32,
+                        device=device)
+
+
+def gnk_prior_params(batch, device, seed):
+    """(A, B, g, k) drawn from the g-and-k priors, uniform(0, 10)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [10.0 * torch.rand(batch, generator=g, device=device)
+            for _ in range(4)]
+
+
+def phase_gnk_kernel_checks(device):
+    """K2 against its plain version on the card, and the times per call."""
+    from elfi_tpu_torch.ops import topk
+    from elfi_tpu_torch.ops.kernels.gnk import (MAX_N_OBS, gnk_distance,
+                                                gnk_distance_noise,
+                                                gnk_distance_reference,
+                                                gnk_sort_rows)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    result = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    # the same normals in both: the kernel's arithmetic, exactly
+    for batch in (2**16, GNK_BATCH):
+        P = gnk_prior_params(batch, device, seed=batch)
+        for n_obs in (17, GNK_N_OBS, MAX_N_OBS):
+            obs = gnk_observed_sorted(n_obs, device)
+            z = torch.randn((batch, n_obs), generator=gen(11), device=device)
+            d_k = gnk_distance_noise(*P, obs, z)
+            d_p = gnk_distance_reference(*P, obs, n_obs, batch_size=batch,
+                                         z=z)
+            torch.cuda.synchronize()
+            err = (d_k - d_p).abs()
+            max_abs = float(err.max())
+            max_rel = float((err / d_p.abs()).max())
+            log(f"K2 noise-injected B={batch} n_obs={n_obs}: max_abs_err="
+                f"{max_abs!r} max_rel_err={max_rel!r} (tolerance rel 1e-5)")
+            check(bool(torch.isfinite(d_k).all()), "K2 output not finite")
+            check(max_rel <= 1e-5, f"K2 disagrees with its plain version: "
+                  f"max relative error {max_rel} > 1e-5")
+            result["max_abs_err"] = max(result["max_abs_err"], max_abs)
+            result["max_rel_err"] = max(result["max_rel_err"], max_rel)
+            del z
+
+    # the sorting network alone against torch.sort, +inf pads and ties
+    y = torch.randn((2**20, MAX_N_OBS), generator=gen(12), device=device)
+    y[::2, GNK_N_OBS:] = math.inf
+    y[1::4, 40:] = y[1::4, :1]
+    check(torch.equal(gnk_sort_rows(y), torch.sort(y, dim=1).values),
+          "K2's sorting network differs from torch.sort")
+    log(f"K2 sort network == torch.sort on {y.shape[0]} rows of "
+        f"{MAX_N_OBS}, +inf pads and ties included")
+    del y
+
+    # the kernel's own Philox stream against torch.randn: statistics
+    batch = 2**20
+    P = [torch.full((batch,), v, device=device) for v in (3.0, 1.0, 2.0, .5)]
+    obs = gnk_observed_sorted(GNK_N_OBS, device)
+    d_k = gnk_distance(*P, obs, GNK_N_OBS, batch_size=batch,
+                       generator=gen(0))
+    d_p = gnk_distance_reference(*P, obs, GNK_N_OBS, batch_size=batch,
+                                 generator=gen(1))
+    stats = [float(x) for x in (d_k.mean(), d_p.mean(), d_k.median(),
+                                d_p.median())]
+    log(f"K2 RNG path B={batch}: mean kernel={stats[0]!r} plain="
+        f"{stats[1]!r} median kernel={stats[2]!r} plain={stats[3]!r} "
+        f"(tolerance 15 %)")
+    check(bool(torch.isfinite(d_k).all()), "K2 output not finite")
+    check(abs(stats[0] - stats[1]) < 0.15 * stats[1],
+          "K2 distance means disagree")
+    check(abs(stats[2] - stats[3]) < 0.15 * stats[3],
+          "K2 distance medians disagree")
+    a = gnk_distance(*P, obs, GNK_N_OBS, batch_size=batch,
+                     generator=gen(3))
+    b = gnk_distance(*P, obs, GNK_N_OBS, batch_size=batch,
+                     generator=gen(3))
+    c = gnk_distance(*P, obs, GNK_N_OBS, batch_size=batch,
+                     generator=gen(4))
+    check(torch.equal(a, b), "K2 is not deterministic for one seed")
+    check(not torch.equal(a, c), "K2 gives the same output for two seeds")
+    log("K2 determinism: same seed equal, different seed differs")
+
+    # times per call at the g-and-k graphs' batch
+    P = gnk_prior_params(GNK_BATCH, device, seed=5)
+    g_k, g_p = gen(21), gen(22)
+    result["ms"] = time_ms(lambda: gnk_distance(
+        *P, obs, GNK_N_OBS, batch_size=GNK_BATCH, generator=g_k))
+    result["plain_ms"] = time_ms(lambda: gnk_distance_reference(
+        *P, obs, GNK_N_OBS, batch_size=GNK_BATCH, generator=g_p))
+    log(f"K2 B={GNK_BATCH}: kernel {result['ms']!r} ms/call, plain "
+        f"{result['plain_ms']!r} ms/call (median of 25, CUDA events)")
+    out = dict(zip(GNK_NAMES, P))
+    out["d"] = gnk_distance(*P, obs, GNK_N_OBS, batch_size=GNK_BATCH,
+                            generator=gen(8))
+    bufs = topk.init_buffers(N_SAMPLES, out, "d")
+    bufs, _ = topk.merge_core(bufs, out, math.inf, "d")
+    result["merge_ms"] = time_ms(
+        lambda: topk.merge_core(bufs, out, math.inf, "d"))
+    log(f"top-N merge n={N_SAMPLES} B={GNK_BATCH} (g-and-k outputs): "
+        f"{result['merge_ms']!r} ms/call")
+    return result
+
+
+def phase_gnk_main_path(device):
+    """Both g-and-k graphs at scripts/gnk_ab.py's operating point."""
+    from elfi_tpu_torch.models import gnk, gnk_kernel
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    graphs = (("gnk plain graph", gnk, 0),
+              ("gnk kernel graph", gnk_kernel,
+               math.ceil(GNK_N_SIM / GNK_BATCH)))
+    for _, mod, _ in graphs:       # warm-up: allocator and generators
+        timed_sample(mod.get_model(n_obs=GNK_N_OBS,
+                                   seed_obs=GNK_SEED_OBS)["d"],
+                     GNK_BATCH, N_SAMPLES, 2 * GNK_BATCH, device, seed=0)
+    out = {}
+    for name, mod, expect in graphs:
+        gnk_distance.launches = 0
+        torch.cuda.reset_peak_memory_stats(device)
+        m = mod.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
+        res, dt = timed_sample(m["d"], GNK_BATCH, N_SAMPLES, GNK_N_SIM,
+                               device)
+        launches = gnk_distance.launches
+        peak = torch.cuda.max_memory_allocated(device)
+        d = res.outputs["d"]
+        check(d.shape == (N_SAMPLES,), f"{name}: d has shape {d.shape}")
+        check(bool(np.all(np.isfinite(d))), f"{name}: non-finite distances")
+        check(bool(np.all(np.diff(d) >= 0)), f"{name}: distances not sorted")
+        check(res.n_sim == GNK_N_SIM, f"{name}: n_sim {res.n_sim}")
+        check(bool(np.all(np.isfinite(res.samples_array))),
+              f"{name}: non-finite parameters")
+        means = np.array([np.mean(res.samples[k]) for k in GNK_NAMES])
+        err = np.abs(means - GNK_JAX_MEANS)
+        sims_s = res.n_sim / dt
+        log(f"{name}: posterior means {means.tolist()!r} |err| from JAX "
+            f"{err.tolist()!r} (gate < {GNK_GATE.tolist()}) threshold "
+            f"{float(d[-1])!r}")
+        log(f"{name}: batch {GNK_BATCH}, {res.n_batches} batches, "
+            f"{res.n_sim} sims in {dt!r} s = {sims_s!r} sims/s; "
+            f"gnk_distance launches {launches} (expected {expect}); peak "
+            f"device memory {peak} bytes")
+        check(bool(np.all(err < GNK_GATE)),
+              f"{name}: g-and-k gate failed: {means}")
+        check(launches == expect, f"{name}: gnk_distance launched "
+              f"{launches} times, expected {expect}")
+        out[name] = dict(seconds=dt, sims_per_s=sims_s, launches=launches,
+                         means=means.tolist(), n_batches=res.n_batches,
+                         peak_bytes=peak)
+    return out
+
+
+def phase_adaptive(device):
+    """Rejection with an adaptive distance over the g-and-k octiles."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import gnk
+
+    def run():
+        m = gnk.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
+        et.Summary(gnk.ss_octile, m["GNK"], model=m, name="octiles")
+        et.AdaptiveDistance(m["octiles"], model=m, name="ad")
+        res, dt = timed_sample(m["ad"], 2**16, 1000, 2**20, device, seed=4)
+        return res, m["ad"].adaptive_state["w"], dt
+
+    (r1, w1, dt), (r2, w2, _) = run(), run()
+    check(len(w1) == 2 and w1[0] is None, f"adaptive: weights {w1}")
+    check(w1[1].shape == (7,) and bool(np.all(np.isfinite(w1[1])))
+          and bool(np.all(w1[1] > 0)), f"adaptive: bad weights {w1[1]}")
+    d = r1.outputs["ad"]
+    check(d.shape == (1000,), f"adaptive: distances of shape {d.shape}")
+    check(bool(np.all(np.isfinite(d))) and bool(np.all(np.diff(d) >= 0)),
+          "adaptive: distances not finite and sorted")
+    check(all(np.array_equal(r1.outputs[k], r2.outputs[k])
+              for k in r1.outputs) and np.array_equal(w1[1], w2[1]),
+          "adaptive: two runs with one seed differ")
+    means = r1.sample_means_array
+    check(bool(np.all((means > 0) & (means < 10))),
+          f"adaptive: means {means} outside the prior")
+    log(f"adaptive distance: {r1.n_batches} batches of 2**16 in {dt!r} s; "
+        f"weights {w1[1].tolist()!r}; means {means.tolist()!r}; threshold "
+        f"{float(d[-1])!r}; two runs with one seed equal")
+    return dict(seconds=dt, means=means.tolist(), w=w1[1].tolist())
+
+
 def phase_profile(device, main_path):
     """Profile a few batches of each graph: device time per batch, and the
     main path's device busy share (that time over the main path's wall time
@@ -269,11 +496,16 @@ def phase_profile(device, main_path):
     import elfi_tpu_torch as et
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from elfi_tpu_torch.models import ma2, ma2_kernel
+    from elfi_tpu_torch.models import gnk, gnk_kernel, ma2, ma2_kernel
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    for name, mod, bs, nb in (("plain graph", ma2, PLAIN_BATCH, 64),
-                              ("kernel graph", ma2_kernel, KERNEL_BATCH, 8)):
-        m = mod.get_model(seed_obs=SEED_OBS)
+    gnk_kw = dict(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
+    for name, mod, kw, bs, nb in (
+            ("plain graph", ma2, dict(seed_obs=SEED_OBS), PLAIN_BATCH, 64),
+            ("kernel graph", ma2_kernel, dict(seed_obs=SEED_OBS),
+             KERNEL_BATCH, 8),
+            ("gnk plain graph", gnk, gnk_kw, GNK_BATCH, 4),
+            ("gnk kernel graph", gnk_kernel, gnk_kw, GNK_BATCH, 8)):
+        m = mod.get_model(**kw)
         rej = et.Rejection(m["d"], batch_size=bs, seed=1, device=device)
         rej.sample(N_SAMPLES, n_sim=2 * bs, bar=False)
         torch.cuda.synchronize()
@@ -291,13 +523,18 @@ def phase_profile(device, main_path):
         wall_ms = run["seconds"] * 1e3 / run["n_batches"]
         run["device_ms_per_batch"] = per_batch_ms
         run["busy_share"] = per_batch_ms / wall_ms
-        fname = f"profile_{name.split()[0]}.txt"
+        fname = "profile_" + "_".join(name.split()[:-1]) + ".txt"
         (OUT_DIR / fname).write_text(events.table(
             sort_by="self_device_time_total", row_limit=30))
         log(f"profile {name}: device {per_batch_ms!r} ms/batch over {nb} "
             f"batches of {bs}; main path {wall_ms!r} ms/batch wall, so the "
             f"device is busy {run['busy_share']!r} of it; table in "
             f"build/profiles/{fname}")
+        top = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)[:5]
+        for e in top:
+            log(f"  {e.self_device_time_total / 1e3 / nb:.4f} ms/batch "
+                f"({e.self_device_time_total / device_us:.3f}) {e.key[:90]}")
 
 
 def main():
@@ -311,21 +548,31 @@ def main():
     log(f"card: {card}")
 
     from elfi_tpu_torch.ops.kernels import _build
+    from elfi_tpu_torch.ops.kernels import gnk as k2
     from elfi_tpu_torch.ops.kernels import ma2 as k1
     t0 = time.perf_counter()
-    k1._lib()
-    log(f"built K1 in {time.perf_counter() - t0!r} s "
-        f"(nvcc {_build.build_log['ma2_distance']['seconds']!r} s)")
-    log(_build.build_log["ma2_distance"]["log"].strip())
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for built in [pool.submit(k._lib) for k in (k1, k2)]:
+            built.result()
+    log(f"built K1 and K2 in {time.perf_counter() - t0!r} s (one nvcc "
+        f"each, in parallel)")
+    for lib in ("ma2_distance", "gnk_distance"):
+        log(f"nvcc {lib}: {_build.build_log[lib]['seconds']!r} s")
+        log(_build.build_log[lib]["log"].strip())
 
-    kernel = phase_kernel_checks(device)
+    k1_checks = phase_kernel_checks(device)
     phase_fused_equals_batchwise(device)
     main_path = phase_main_path(device)
+    k2_checks = phase_gnk_kernel_checks(device)
+    main_path.update(phase_gnk_main_path(device))
+    adaptive = phase_adaptive(device)
     phase_profile(device, main_path)
 
     log(json.dumps({"main_path": main_path,
-                    "merge_ms": {k: v for k, v in kernel.items()
-                                 if k.startswith("merge_ms")},
+                    "merge_ms": {**{k: v for k, v in k1_checks.items()
+                                    if k.startswith("merge_ms")},
+                                 f"gnk_{GNK_BATCH}": k2_checks["merge_ms"]},
+                    "adaptive": adaptive,
                     "card": card}))
     log(json.dumps({"kernels": [{
         "name": "ma2_distance",
@@ -333,9 +580,18 @@ def main():
         "source": "elfi_tpu_torch/csrc/ma2_distance.cu",
         "replaces": "elfi_tpu/ops/pallas_kernels.py:71",
         "launches": main_path["kernel graph"]["launches"],
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
+        "max_abs_err": k1_checks["max_abs_err"],
+        "ms": k1_checks["ms"],
+        "plain_ms": k1_checks["plain_ms"],
+    }, {
+        "name": "gnk_distance",
+        "route": "cuda",
+        "source": "elfi_tpu_torch/csrc/gnk_distance.cu",
+        "replaces": "elfi_tpu/ops/pallas_kernels.py:157",
+        "launches": main_path["gnk kernel graph"]["launches"],
+        "max_abs_err": k2_checks["max_abs_err"],
+        "ms": k2_checks["ms"],
+        "plain_ms": k2_checks["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

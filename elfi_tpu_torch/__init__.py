@@ -5,13 +5,14 @@ code is plain PyTorch on tensors with an explicit device and explicit
 ``torch.Generator`` streams, plus hand-written CUDA kernels where the JAX
 package had Pallas kernels.  It never imports JAX or ``elfi_tpu``.
 
-So far it covers the MA2 rejection-ABC slice: the model DSL, the per-batch
-program, the native backend, ``Rejection`` with its fused loop, the top-N
-merge, and the MA2 models with the fused MA2 distance kernel.
+So far it covers rejection ABC: the model DSL, the per-batch program, the
+native backend, ``Rejection`` with its fused loop and the adaptive distance,
+the top-N merge, the distance metrics, the MA2 and g-and-k models, and the
+fused MA2 and g-and-k distance kernels.
 """
 
-from .model import (Constant, Distance, Model, Operation, Prior,  # noqa: F401
-                    Simulator, Summary)
+from .model import (AdaptiveDistance, Constant, Distance,  # noqa: F401
+                    Model, Operation, Prior, Simulator, Summary)
 from .ops.distributions import Distribution  # noqa: F401
 from .parallel import (NativeBackend, get_client, reset_client,  # noqa: F401
                        set_client)

@@ -31,6 +31,15 @@ from ..utils.rng import generator, stream_seed
 __all__ = ["compile_program", "CompiledProgram"]
 
 
+def _adaptive_versions(model):
+    """(name, version) of every adaptive-distance holder in the model: part
+    of every program cache key, because the holders are SHARED across model
+    copies and mutate without bumping this copy's revision."""
+    return tuple(sorted(
+        (n, st["_adaptive_state"].get("version", 0))
+        for n, st in model.dag.nodes.items() if st.get("adaptive")))
+
+
 def compile_program(model, outputs, override_names=(), device="cpu"):
     """Return a (cached) :class:`CompiledProgram` for ``outputs`` of
     ``model`` on ``device`` with the given set of overridable node names."""
@@ -38,7 +47,8 @@ def compile_program(model, outputs, override_names=(), device="cpu"):
     override_names = tuple(sorted(override_names))
     device = torch.device(device)
     cache = model.__dict__.setdefault("_program_cache", {})
-    key = (model.revision, outputs, override_names, str(device))
+    key = (model.revision, outputs, override_names, str(device),
+           _adaptive_versions(model))
     if key in cache:
         cache[key] = cache.pop(key)      # LRU: hot entries move to the end
     else:

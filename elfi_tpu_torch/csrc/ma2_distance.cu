@@ -22,11 +22,11 @@
 // pairs.  The accurate logf/sqrtf/sincospif are used (no fast math yet).
 //
 // RNG: Philox4x32-10 keyed by the node's 64-bit stream seed, with counter
-// (simulation index, draw index), so the result does not depend on the
-// block size or the grid.  The streams differ from torch.randn's; the
-// kernel agrees with the plain PyTorch version statistically, and exactly
-// (up to summation order) when both are fed the same noise through the
-// kNoiseIn entry below.
+// (simulation index, draw block), so the result does not depend on the
+// block size or the grid (philox.cuh, shared with the g-and-k kernel).
+// The streams differ from torch.randn's; the kernel agrees with the plain
+// PyTorch version statistically, and exactly (up to summation order) when
+// both are fed the same noise through the kNoiseIn entry below.
 //
 // Numerics: the filter and the distance round each product and sum
 // separately (no FMA contraction), as the plain version's elementwise ops
@@ -37,47 +37,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
+using elfi::box_muller;
+using elfi::philox_block;
+
 constexpr int kThreads = 256;
-
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-
-__device__ __forceinline__ uint4 philox_round(uint4 c, uint2 k) {
-  const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-  const uint32_t lo0 = kPhiloxM0 * c.x;
-  const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-  const uint32_t lo1 = kPhiloxM1 * c.z;
-  return make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-}
-
-// Philox4x32-10 (Salmon et al., SC'11): 10 rounds, key bumped between them.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 9; ++r) {
-    c = philox_round(c, k);
-    k.x += kPhiloxW0;
-    k.y += kPhiloxW1;
-  }
-  return philox_round(c, k);
-}
-
-// The top 23 bits of x as (2m + 1) * 2^-24: exact in float and strictly
-// inside (0, 1), so logf never sees 0 (the TPU kernel added 1e-7 instead).
-__device__ __forceinline__ float open_uniform(uint32_t x) {
-  return static_cast<float>((x >> 9) * 2u + 1u) * 5.9604644775390625e-8f;
-}
-
-// Both Box-Muller normals from two 32-bit words.
-__device__ __forceinline__ float2 box_muller(uint32_t a, uint32_t b) {
-  const float r = sqrtf(-2.0f * logf(open_uniform(a)));
-  float s, c;
-  sincospif(2.0f * open_uniform(b), &s, &c);
-  return make_float2(r * c, r * s);
-}
 
 // Streaming MA(2) filter + lag-1/lag-2 autocovariances of one simulation.
 struct Ma2Stats {
@@ -128,14 +95,8 @@ ma2_distance_kernel(const float* __restrict__ t1,
     const float* w = noise + i * n_w;
     for (int k = 0; k < n_w; ++k) st.push(w[k]);
   } else {
-    const uint2 key = make_uint2(static_cast<uint32_t>(seed),
-                                 static_cast<uint32_t>(seed >> 32));
     for (int k = 0; k < n_w; k += 4) {
-      const uint4 r = philox4x32_10(
-          make_uint4(static_cast<uint32_t>(i),
-                     static_cast<uint32_t>(static_cast<uint64_t>(i) >> 32),
-                     static_cast<uint32_t>(k >> 2), 0u),
-          key);
+      const uint4 r = philox_block(seed, i, static_cast<uint32_t>(k >> 2));
       const float2 z0 = box_muller(r.x, r.y);
       st.push(z0.x);
       if (k + 1 < n_w) st.push(z0.y);

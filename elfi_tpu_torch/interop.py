@@ -5,7 +5,10 @@ and the rejection sampler's top-N sample buffer.  Both are dicts of arrays;
 :func:`from_numpy_state` turns such a dict, taken to numpy on the JAX side
 (``jax.device_get(rej.state["samples"])``, including ``__key``, or
 ``model.observed``), into tensors on ``device``, so both packages can
-compute from the same state.
+compute from the same state.  An adaptive distance's state is a host-side
+holder of weight vectors and Welford accumulators;
+:func:`adaptive_state_from_numpy` carries the JAX node's holder into the
+port's node.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_numpy_state"]
+__all__ = ["from_numpy_state", "adaptive_state_from_numpy"]
 
 
 def from_numpy_state(d, device):
@@ -21,3 +24,25 @@ def from_numpy_state(d, device):
     tensors are copies: ``jax.device_get`` hands out read-only arrays."""
     return {k: torch.tensor(np.asarray(v), device=device)
             for k, v in d.items()}
+
+
+def adaptive_state_from_numpy(holder, node):
+    """Load a JAX ``AdaptiveDistance`` holder (``node.adaptive_state`` of
+    the JAX package: the ``w`` list, whose first entry is ``None``, and the
+    Welford fields ``count``, ``mean``, ``m2`` and ``scale``) into the
+    port's ``AdaptiveDistance`` ``node``, as float64 numpy copies, and
+    return the node's holder.  The holder's version is bumped, not copied:
+    programs compiled against the old weights go stale."""
+    def f64(x):
+        return np.array(x, np.float64)
+
+    st = node.adaptive_state
+    st["w"] = [None if w is None else f64(w) for w in holder["w"]]
+    st["count"] = int(holder["count"])
+    for k in ("mean", "m2", "scale"):
+        if k in holder:
+            st[k] = f64(holder[k])
+        else:
+            st.pop(k, None)
+    node._bump_version()
+    return st

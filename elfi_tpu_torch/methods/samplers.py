@@ -1,13 +1,14 @@
 """ABC rejection sampling (counterpart of :mod:`elfi_tpu.methods.samplers`;
-SMC and the adaptive samplers come later).
+SMC and the adaptive SMC samplers come later).
 
 The running top-N sample buffer lives on the device and is maintained by
 :mod:`elfi_tpu_torch.ops.topk`.  ``Rejection.sample`` runs a FUSED path
-when nothing host-side is needed: a host loop that queues every batch's
-program and merge on the device without reading anything back, except, in
-threshold mode, one acceptance count per chunk of batches.  The fused and
-the batch-at-a-time paths call the same per-batch function with the same
-stream seeds and the same merge, so they give identical samples for a seed.
+when nothing host-side is needed (no adaptive distance): a host loop that
+queues every batch's program and merge on the device without reading
+anything back, except, in threshold mode, one acceptance count per chunk
+of batches.  The fused and the batch-at-a-time paths call the same
+per-batch function with the same stream seeds and the same merge, so they
+give identical samples for a seed.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..compile.compiler import compile_program
+from ..model.model import AdaptiveDistance
 from ..ops import topk
 from ..parallel.backends import NativeBackend
 from .base import Sampler, _ProgressBar
@@ -42,14 +44,16 @@ class Rejection(Sampler):
         model, discrepancy_name = self._resolve_model(model, discrepancy_name)
         output_names = [discrepancy_name] + model.parameter_names \
             + (output_names or [])
+        self.adaptive = isinstance(model[discrepancy_name], AdaptiveDistance)
+        if self.adaptive:
+            model[discrepancy_name].init_adaptation_round()
+            self.sums = [s.name for s in model[discrepancy_name].parents]
+            for k in self.sums:
+                if k not in output_names:
+                    output_names.append(k)
         super().__init__(model, output_names, **kwargs)
         self.discrepancy_name = discrepancy_name
         self._merge = topk.make_merge_fn(discrepancy_name)
-
-    @property
-    def adaptive(self):
-        raise NotImplementedError(
-            "adaptive distances are not ported to PyTorch yet")
 
     # -- objective ---------------------------------------------------------
     def set_objective(self, n_samples, threshold=None, quantile=None,
@@ -74,6 +78,9 @@ class Rejection(Sampler):
         if self.state["samples"] is None:
             self.state["samples"] = topk.init_buffers(
                 self.objective["n_samples"], batch, self.discrepancy_name)
+        if self.adaptive:
+            self.model[self.discrepancy_name].add_data(
+                *(batch[s].cpu().numpy() for s in self.sums))
         self.state["samples"], acc = self._merge(self.state["samples"],
                                                  batch,
                                                  self._merge_threshold())
@@ -106,6 +113,8 @@ class Rejection(Sampler):
     def extract_result(self):
         if self.state["samples"] is None:
             raise ValueError("Nothing to extract")
+        if self.adaptive:
+            self._update_distances()
         outputs = {k: v.cpu().numpy()
                    for k, v in self.state["samples"].items() if k != "__key"}
         self._update_state_meta(outputs)
@@ -117,20 +126,48 @@ class Rejection(Sampler):
         self.state["threshold"] = d[n - 1]
         self.state["accept_rate"] = min(1, n / max(self.state["n_sim"], 1))
 
+    def _update_distances(self):
+        """Adaptive distance: freeze the new scale, recompute the kept
+        rows' distances under it and re-sort them (reference
+        ``samplers.py:279-299``).  The order is numpy's ``argsort`` of the
+        new distances, as in the JAX package."""
+        node = self.model[self.discrepancy_name]
+        node.update_distance()
+        nums = self.objective["n_samples"]
+        samples = self.state["samples"]
+        data = {s: samples[s][:nums] for s in self.sums}
+        prog = compile_program(self.model, (self.discrepancy_name,),
+                               override_names=tuple(sorted(data)),
+                               device=self.device)
+        ds = prog.run(self.seed, 0, data,
+                      batch_size=nums)[self.discrepancy_name]
+        sort_distance = ds if ds.ndim == 1 else ds[:, -1]
+        order = torch.as_tensor(np.argsort(sort_distance.cpu().numpy()),
+                                device=sort_distance.device)
+        new = {k: v.index_select(0, order) for k, v in samples.items()
+               if k not in (self.discrepancy_name, "__key")}
+        new[self.discrepancy_name] = new["__key"] = \
+            sort_distance.index_select(0, order)
+        self.state["samples"] = new
+
     # -- fused path -----------------------------------------------------------------
     def sample(self, n_samples, threshold=None, quantile=None, n_sim=None,
                fused=None, bar=True, **kwargs):
         """Sample from the approximate posterior.
 
         ``fused=True`` (default when eligible) queues the whole rejection
-        loop on the device from one host loop.
+        loop on the device from one host loop.  An adaptive distance needs
+        the host between batches, so it runs batch at a time.
         """
         self.bar = bar
-        eligible = isinstance(self.client, NativeBackend) and not kwargs
+        eligible = (not self.adaptive
+                    and isinstance(self.client, NativeBackend)
+                    and not kwargs)
         if fused is None:
             fused = eligible
         if fused and not eligible:
-            raise ValueError("fused=True requires the native backend")
+            raise ValueError("fused=True requires: no adaptive distance, "
+                             "native backend")
         self.set_objective(n_samples, threshold=threshold, quantile=quantile,
                            n_sim=n_sim)
         prog = compile_program(self.model, tuple(self.output_names),

@@ -26,8 +26,8 @@ from ..ops import distributions as dists
 __all__ = [
     "Model", "ComputationContext", "new_model", "get_default_model",
     "set_default_model", "Constant", "Operation", "RandomVariable", "Prior",
-    "Simulator", "Summary", "Discrepancy", "Distance", "NodeReference",
-    "node_uid",
+    "Simulator", "Summary", "Discrepancy", "Distance", "AdaptiveDistance",
+    "NodeReference", "node_uid",
 ]
 
 _default_model = None
@@ -321,11 +321,94 @@ class Discrepancy(NodeReference):
 
 class Distance(Discrepancy):
     """Built-in vectorised distance between summary vectors and observed
-    (metrics from :mod:`elfi_tpu_torch.ops.distances`)."""
+    (metrics from :mod:`elfi_tpu_torch.ops.distances`).  ``metric`` is a
+    name, with ``p``/``w``/``V``/``VI`` as ``scipy.spatial.distance.cdist``
+    takes them, or a callable ``metric(u, v) -> (batch,)`` on the
+    column-stacked summaries."""
 
-    def __init__(self, metric, *summaries, w=None, **kwargs):
-        from ..ops.distances import distance_op
+    def __init__(self, metric, *summaries, p=None, w=None, V=None, VI=None,
+                 **kwargs):
+        from ..ops.distances import CallableDistanceOp, distance_op
         if not summaries:
             raise ValueError("Distance requires at least one summary parent")
-        super().__init__(distance_op(metric, w=w), *summaries, **kwargs)
+        fn = distance_op(metric, p=p, w=w, V=V, VI=VI) \
+            if isinstance(metric, str) else CallableDistanceOp(metric)
+        super().__init__(fn, *summaries, **kwargs)
         self.model.dag.update_state(self.name, metric=metric)
+
+
+class AdaptiveDistance(Discrepancy):
+    """Euclidean distance with adaptively re-scaled summaries (Prangle
+    2017; counterpart of :class:`elfi_tpu.model.model.AdaptiveDistance`).
+
+    The node outputs ``(batch, n_distance_functions)``: one column per
+    accumulated weight vector, column 0 unweighted, and inference sorts on
+    the LAST column.  Summary standard deviations are estimated per
+    adaptation round with Welford's online algorithm, on the host in
+    float64 numpy; ``update_distance`` freezes ``w = 1/std`` as a new
+    distance function.
+
+    The mutable adaptation state lives in a holder dict SHARED across model
+    copies, so an inference method mutating its model copy updates the
+    user's node too.  Its ``version`` joins the compiled-program cache key.
+    """
+
+    def __init__(self, *summaries, **kwargs):
+        from ..ops.distances import adaptive_distance_op
+        holder = {}
+        super().__init__(adaptive_distance_op(holder), *summaries, **kwargs)
+        self.model.dag.update_state(self.name, adaptive=True,
+                                    _adaptive_state=holder)
+        self.init_state()
+
+    @property
+    def adaptive_state(self):
+        return self.state["_adaptive_state"]
+
+    def init_state(self):
+        st = self.adaptive_state
+        st["w"] = [None]
+        st.pop("scale", None)
+        self._bump_version()
+        self.init_adaptation_round()
+
+    def _bump_version(self):
+        """The holder is shared across model copies: its version makes
+        EVERY copy's programs stale (the revision bump only this one's)."""
+        st = self.adaptive_state
+        st["version"] = st.get("version", 0) + 1
+        self.model._invalidate_cache()
+
+    def init_adaptation_round(self):
+        """Reset the Welford accumulators (count, mean, M2) for a new round
+        (reference ``elfi_model.py:1095-1102``)."""
+        st = self.adaptive_state
+        if "w" not in st:
+            self.init_state()
+            return
+        st["count"] = 0
+        st["mean"] = 0.0
+        st["m2"] = 0.0
+
+    def add_data(self, *data):
+        """Welford-update the online std estimate with a batch of summary
+        outputs, numpy arrays (reference ``elfi_model.py:1104-1126``)."""
+        st = self.adaptive_state
+        cols = [np.asarray(d, np.float64) for d in data]
+        data2d = np.column_stack(
+            [c.reshape(c.shape[0], -1) if c.ndim > 1 else c[:, None]
+             for c in cols])
+        st["count"] += len(data2d)
+        delta1 = data2d - st["mean"]
+        st["mean"] = st["mean"] + np.sum(delta1, axis=0) / st["count"]
+        delta2 = data2d - st["mean"]
+        st["m2"] = st["m2"] + np.sum(delta1 * delta2, axis=0)
+        st["scale"] = np.sqrt(st["m2"] / st["count"])
+
+    def update_distance(self):
+        """Append a new distance function weighted by 1/std and reset the
+        accumulators (reference ``elfi_model.py:1128-1133``)."""
+        st = self.adaptive_state
+        st["w"].append(1.0 / st["scale"])
+        self._bump_version()
+        self.init_adaptation_round()

@@ -1,1 +1,2 @@
-"""Example models of the PyTorch port (the MA2 slice so far)."""
+"""Example models of the PyTorch port: MA2 and g-and-k (univariate and
+bivariate), each model with a CUDA kernel beside its plain graph."""

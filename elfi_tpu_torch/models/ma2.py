@@ -20,6 +20,7 @@ import torch
 
 from ..model.model import Distance, Model, Prior, Simulator, Summary
 from ..ops.distributions import Distribution
+from ._observed import load_observed
 
 __all__ = ["MA2", "autocov", "get_model", "observed_data", "CustomPrior1",
            "CustomPrior2"]
@@ -89,18 +90,7 @@ class CustomPrior2(Distribution):
 def observed_data(n_obs=100, true_params=None, seed_obs=None):
     """The JAX package's observed MA2 series for ``seed_obs`` (None means
     0, as there); only the committed settings are available."""
-    seed_obs = seed_obs or 0
-    if n_obs != 100 or (true_params is not None
-                        and list(true_params) != [.6, .2]):
-        raise ValueError("only n_obs=100 at true_params (0.6, 0.2) is "
-                         "stored for the PyTorch port")
-    with np.load(_DATA) as data:
-        key = f"seed_{seed_obs}"
-        if key not in data:
-            stored = sorted(int(k.split("_")[1]) for k in data.files)
-            raise ValueError(f"no stored observed data for seed_obs="
-                             f"{seed_obs}; stored: {stored}")
-        return data[key]
+    return load_observed(_DATA, n_obs, 100, true_params, (.6, .2), seed_obs)
 
 
 def get_model(n_obs=100, true_params=None, seed_obs=None):

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources into shared libraries with a plain C
-interface, and load them with ``ctypes``.
+interface and load them with ``ctypes``; and the checks every wrapper makes
+before it hands a pointer to a kernel and after the launch.
 
 ``nvcc`` compiles the sources under ``elfi_tpu_torch/csrc/`` for Hopper
 (``sm_90a``) into ``build/elfi_tpu_torch/`` beside the package, at first
-use.  The library's file name carries a hash of the sources and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
+use.  The library's file name carries a hash of the sources, the headers
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is.
 No source includes PyTorch's headers, which keeps a build to seconds.
 """
 
@@ -19,8 +21,10 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "load",
-           "build_log"]
+           "build_log", "check_tensor", "raise_on"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -48,9 +52,11 @@ def _nvcc():
 
 def library_path(name, sources):
     """Path of the library built from ``sources`` (file names in
-    ``csrc/``): keyed by a hash of their contents and of the flags."""
+    ``csrc/``): keyed by a hash of their contents, of every header in
+    ``csrc/`` (a source may include any of them) and of the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for s in (*sources, *headers):
         h.update(s.encode())
         h.update((CSRC / s).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -87,3 +93,26 @@ def load(name, sources):
                            "log": proc.stdout + proc.stderr}
     _loaded[name] = ctypes.CDLL(str(path))
     return _loaded[name]
+
+
+def check_tensor(name, x, shape, device):
+    """Raise ``ValueError`` unless ``x`` is a contiguous float32 tensor of
+    ``shape`` on ``device``: what a kernel reads through a bare pointer."""
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"{name} must be a torch.Tensor, got {type(x)}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(rc, lib, entry):
+    """Raise if a launcher returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.elfi_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,189 @@
+"""Fused g-and-k simulate -> order statistics -> distance: the wrapper of
+the CUDA kernel ``csrc/gnk_distance.cu`` and its plain PyTorch version.
+
+Counterpart of :func:`elfi_tpu.ops.pallas_kernels.gnk_distance`.  The
+wrapper launches the kernel for CUDA tensors and raises if it cannot; it
+runs the plain version only for CPU tensors.  ``gnk_distance.launches``
+counts the kernel launches, so a run can show it went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+__all__ = ["gnk_distance", "gnk_distance_noise", "gnk_distance_reference",
+           "gnk_sort_rows", "gnk_transform", "MAX_N_OBS"]
+
+_LIB = "gnk_distance"
+_SOURCES = ("gnk_distance.cu",)
+_P = ctypes.c_void_p
+#: rows of the kernel's sorting network: n_obs may be 1 .. MAX_N_OBS
+MAX_N_OBS = 64
+
+
+@functools.cache
+def _lib():
+    """Build (at first use) and bind the kernel library."""
+    lib = _build.load(_LIB, _SOURCES)
+    lib.elfi_gnk_distance.argtypes = [
+        _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, _P]
+    lib.elfi_gnk_distance.restype = ctypes.c_int
+    lib.elfi_gnk_distance_noise.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, _P]
+    lib.elfi_gnk_distance_noise.restype = ctypes.c_int
+    lib.elfi_gnk_sort_rows.argtypes = [_P, _P, ctypes.c_longlong,
+                                       ctypes.c_int, _P]
+    lib.elfi_gnk_sort_rows.restype = ctypes.c_int
+    lib.elfi_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.elfi_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _device_of(x):
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"expected a torch.Tensor, got {type(x)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device
+
+
+def _check(params, obs, n_obs, batch_size, z=None):
+    """Validate the kernel's contract; returns the common device."""
+    if not isinstance(n_obs, int) or not 1 <= n_obs <= MAX_N_OBS:
+        raise ValueError(f"n_obs must be an int in 1..{MAX_N_OBS}, got "
+                         f"{n_obs!r}")
+    if not isinstance(batch_size, int) or batch_size < 1:
+        raise ValueError(f"batch_size must be an int >= 1, got "
+                         f"{batch_size!r}")
+    device = _device_of(params[0])
+    for name, p in zip("ABgk", params):
+        _build.check_tensor(name, p, (batch_size,), device)
+    _build.check_tensor("observed_sorted", obs, (n_obs,), device)
+    if z is not None:
+        _build.check_tensor("z", z, (batch_size, n_obs), device)
+    return device
+
+
+def gnk_transform(z, A, B, g, k, c=0.8):
+    """The g-and-k quantile function at ``z`` in the TPU kernel's form
+    (``pallas_kernels.py:182-187``): ``A + B (1 + c tanh(g z / 2))
+    exp(k log1p(z^2)) z`` with an overflow-stable tanh.  ``A`` .. ``k`` are
+    (batch,) and ``z`` is (batch, n); each op rounds as the kernel does."""
+    A, B, g, k = (p.reshape(-1, 1) for p in (A, B, g, k))
+    x = 0.5 * g * z
+    e = torch.exp(-2.0 * torch.abs(x))
+    tanh = torch.sign(x) * (1.0 - e) / (1.0 + e)
+    return A + B * (1.0 + c * tanh) * torch.exp(k * torch.log1p(z * z)) * z
+
+
+def gnk_distance_reference(A, B, g, k, observed_sorted, n_obs=50, c=0.8,
+                           batch_size=1, generator=None, z=None):
+    """Plain PyTorch version: draw z (or take ``z``), transform, sort each
+    row and take the euclidean distance to ``observed_sorted`` -- the JAX
+    package's ``GNK`` + ``ss_order`` + ``euclidean_multiss``.
+
+    The kernel pads rows ``>= n_obs`` with +inf before its 64-row sort;
+    sorting the ``n_obs`` values alone gives the same first ``n_obs``
+    rows.  The squared differences are summed in float64 and the distance
+    rounded to float32, as the kernel does: a float32 sum in another order
+    differs by some 1e-7 relative, and more where the distance is small.
+    """
+    if z is None:
+        z = torch.randn((batch_size, n_obs), generator=generator,
+                        device=A.device)
+    ys = torch.sort(gnk_transform(z, A, B, g, k, c), dim=1).values
+    d = ys.double() - observed_sorted.double()
+    return torch.sqrt(torch.sum(d * d, dim=1)).float()
+
+
+def gnk_distance(A, B, g, k, observed_sorted, n_obs=50, c=0.8, batch_size=1,
+                 generator=None):
+    """Fused g-and-k simulate+sort+distance; returns (batch,) float32.
+
+    ``A``, ``B``, ``g``, ``k``: (batch_size,) float32; ``observed_sorted``:
+    (n_obs,) float32 in ascending order (the caller sorts it once); all
+    contiguous on one device, 1 <= n_obs <= 64.  On CUDA the kernel's
+    Philox stream is keyed by ``generator.initial_seed()``; on the CPU the
+    plain version draws from ``generator``.
+    """
+    params = (A, B, g, k)
+    device = _check(params, observed_sorted, n_obs, batch_size)
+    if device.type == "cpu":
+        return gnk_distance_reference(*params, observed_sorted, n_obs, c,
+                                      batch_size, generator=generator)
+    if generator is None:
+        raise ValueError("on CUDA gnk_distance needs a generator: its "
+                         "initial_seed() keys the kernel's Philox stream")
+    lib = _lib()
+    out = torch.empty(batch_size, dtype=torch.float32, device=device)
+    rc = lib.elfi_gnk_distance(
+        *(p.data_ptr() for p in params), observed_sorted.data_ptr(),
+        out.data_ptr(), batch_size, n_obs, float(c),
+        generator.initial_seed(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.raise_on(rc, lib, "elfi_gnk_distance")
+    gnk_distance.launches += 1
+    return out
+
+
+gnk_distance.launches = 0
+
+
+def gnk_distance_noise(A, B, g, k, observed_sorted, z, c=0.8):
+    """The kernel's noise-injection entry: the same transform, sort and
+    distance on given normals ``z`` (batch, n_obs) instead of its own
+    draws.  It exists to hold the kernel's arithmetic against the plain
+    version exactly."""
+    if not isinstance(z, torch.Tensor) or z.ndim != 2:
+        raise ValueError("z must be a (batch, n_obs) torch.Tensor")
+    batch_size, n_obs = (int(s) for s in z.shape)
+    params = (A, B, g, k)
+    device = _check(params, observed_sorted, n_obs, batch_size, z)
+    if device.type == "cpu":
+        return gnk_distance_reference(*params, observed_sorted, n_obs, c,
+                                      batch_size, z=z)
+    lib = _lib()
+    out = torch.empty(batch_size, dtype=torch.float32, device=device)
+    rc = lib.elfi_gnk_distance_noise(
+        *(p.data_ptr() for p in params), observed_sorted.data_ptr(),
+        z.data_ptr(), out.data_ptr(), batch_size, n_obs, float(c),
+        device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.raise_on(rc, lib, "elfi_gnk_distance_noise")
+    gnk_distance_noise.launches += 1
+    return out
+
+
+gnk_distance_noise.launches = 0
+
+
+def gnk_sort_rows(y):
+    """The kernel's sorting network alone: each row of ``y`` (batch, 64)
+    float32 sorted ascending.  On the CPU it is ``torch.sort``, which the
+    network must equal exactly on the card, +inf pads included."""
+    device = _device_of(y)
+    if y.ndim != 2:
+        raise ValueError(f"y must be (batch, {MAX_N_OBS}), got {tuple(y.shape)}")
+    batch = int(y.shape[0])
+    _build.check_tensor("y", y, (batch, MAX_N_OBS), device)
+    if batch < 1:
+        raise ValueError("y must have at least one row")
+    if device.type == "cpu":
+        return torch.sort(y, dim=1).values
+    lib = _lib()
+    out = torch.empty_like(y)
+    rc = lib.elfi_gnk_sort_rows(y.data_ptr(), out.data_ptr(), batch,
+                                device.index,
+                                torch.cuda.current_stream(device).cuda_stream)
+    _build.raise_on(rc, lib, "elfi_gnk_sort_rows")
+    gnk_sort_rows.launches += 1
+    return out
+
+
+gnk_sort_rows.launches = 0

@@ -40,20 +40,6 @@ def _lib():
     return lib
 
 
-def _check_tensor(name, x, shape, device):
-    if not isinstance(x, torch.Tensor):
-        raise ValueError(f"{name} must be a torch.Tensor, got {type(x)}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check(t1, t2, obs, n_obs, batch_size, noise=None):
     """Validate the kernel's contract; returns the common device."""
     if not isinstance(n_obs, int) or n_obs < 3:
@@ -66,18 +52,12 @@ def _check(t1, t2, obs, n_obs, batch_size, noise=None):
     device = t1.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    _check_tensor("t1", t1, (batch_size,), device)
-    _check_tensor("t2", t2, (batch_size,), device)
-    _check_tensor("observed_autocovs", obs, (2,), device)
+    _build.check_tensor("t1", t1, (batch_size,), device)
+    _build.check_tensor("t2", t2, (batch_size,), device)
+    _build.check_tensor("observed_autocovs", obs, (2,), device)
     if noise is not None:
-        _check_tensor("noise", noise, (batch_size, n_obs + 2), device)
+        _build.check_tensor("noise", noise, (batch_size, n_obs + 2), device)
     return device
-
-
-def _raise_on(rc, lib, entry):
-    if rc != 0:
-        msg = lib.elfi_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
 
 
 def ma2_distance_reference(t1, t2, obs, n_obs, batch_size, generator=None,
@@ -129,7 +109,7 @@ def ma2_distance(t1, t2, observed_autocovs, n_obs=100, batch_size=1,
         t1.data_ptr(), t2.data_ptr(), observed_autocovs.data_ptr(),
         out.data_ptr(), batch_size, n_obs, generator.initial_seed(),
         device.index, torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, lib, "elfi_ma2_distance")
+    _build.raise_on(rc, lib, "elfi_ma2_distance")
     ma2_distance.launches += 1
     return out
 
@@ -153,7 +133,7 @@ def ma2_distance_noise(t1, t2, observed_autocovs, noise):
         t1.data_ptr(), t2.data_ptr(), observed_autocovs.data_ptr(),
         noise.data_ptr(), out.data_ptr(), batch_size, n_obs, device.index,
         torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, lib, "elfi_ma2_distance_noise")
+    _build.raise_on(rc, lib, "elfi_ma2_distance_noise")
     ma2_distance_noise.launches += 1
     return out
 

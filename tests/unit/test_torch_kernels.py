@@ -107,14 +107,24 @@ def test_noise_entry_validation():
 
 
 def test_cuda_source_is_in_the_package():
-    src = _build.CSRC / "ma2_distance.cu"
-    assert src.is_file()
-    text = src.read_text()
-    for entry in ("elfi_ma2_distance(", "elfi_ma2_distance_noise(",
-                  "elfi_cuda_error_string("):
-        assert entry in text
-    assert "elfi_tpu/ops/pallas_kernels.py:_ma2_kernel" in text
-    assert "torch/extension.h" not in text
+    sources = {
+        "ma2_distance.cu": ("elfi_ma2_distance(", "elfi_ma2_distance_noise(",
+                            "elfi_cuda_error_string(",
+                            "elfi_tpu/ops/pallas_kernels.py:_ma2_kernel"),
+        "gnk_distance.cu": ("elfi_gnk_distance(", "elfi_gnk_distance_noise(",
+                            "elfi_gnk_sort_rows(", "elfi_cuda_error_string(",
+                            "elfi_tpu/ops/pallas_kernels.py:_gnk_kernel"),
+    }
+    for name, entries in sources.items():
+        text = (_build.CSRC / name).read_text()
+        for entry in entries:
+            assert entry in text, (name, entry)
+        assert '#include "philox.cuh"' in text
+        assert "torch/extension.h" not in text
+    header = (_build.CSRC / "philox.cuh").read_text()
+    for helper in ("philox4x32_10(", "philox_block(", "open_uniform(",
+                   "box_muller("):
+        assert helper in header
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
@@ -127,6 +137,12 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text("// two")
     p2 = _build.library_path("k", ("k.cu",))
     assert p1 != p2 and p1.parent == p2.parent == _build.BUILD_DIR
+    # a header may be included by any source: editing one rebuilds
+    (tmp_path / "h.cuh").write_text("// h1")
+    p3 = _build.library_path("k", ("k.cu",))
+    (tmp_path / "h.cuh").write_text("// h2")
+    p4 = _build.library_path("k", ("k.cu",))
+    assert len({p2, p3, p4}) == 3
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -81,7 +81,7 @@ def test_node_uid_equals_jax():
 
 def test_flat_namespace_is_the_slice():
     names = {"Model", "Prior", "Simulator", "Summary", "Distance",
-             "Operation", "Constant", "Distribution", "Rejection", "Sample",
+             "AdaptiveDistance", "Operation", "Constant", "Distribution", "Rejection", "Sample",
              "NativeBackend", "get_client", "set_client", "reset_client"}
     public = {n for n in dir(et) if not n.startswith("_")}
     assert names <= public
@@ -93,7 +93,9 @@ def test_flat_namespace_is_the_slice():
 
 def test_import_leaves_jax_out():
     code = ("import sys, elfi_tpu_torch, elfi_tpu_torch.models.ma2, "
-            "elfi_tpu_torch.models.ma2_kernel, elfi_tpu_torch.interop; "
+            "elfi_tpu_torch.models.ma2_kernel, elfi_tpu_torch.interop, "
+            "elfi_tpu_torch.models.gnk, elfi_tpu_torch.models.gnk_kernel, "
+            "elfi_tpu_torch.models.bignk; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'elfi_tpu.', 'jaxlib')) or "
             "m == 'elfi_tpu']; print(bad); sys.exit(1 if bad else 0)")
@@ -119,9 +121,12 @@ def test_parameterless_model_rejected():
 
 
 def test_adaptive_not_ported_yet():
-    rej = et.Rejection(ma2.get_model(seed_obs=4)["d"], batch_size=4)
-    with pytest.raises(NotImplementedError):
-        rej.adaptive
+    """``Rejection.adaptive`` is a bool: False on MA2's euclidean node,
+    True on an ``AdaptiveDistance`` node, as in the JAX package."""
+    m = ma2.get_model(seed_obs=4)
+    assert et.Rejection(m["d"], batch_size=4).adaptive is False
+    et.AdaptiveDistance(m["S1"], m["S2"], model=m, name="ad")
+    assert et.Rejection(m["ad"], batch_size=4).adaptive is True
 
 
 def test_generate_shapes_match_jax():

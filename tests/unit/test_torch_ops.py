@@ -100,4 +100,4 @@ def test_euclidean_distance_equals_jax(w):
 
 def test_unknown_metric_raises():
     with pytest.raises(ValueError, match="Unknown metric"):
-        distances.distance_op("cityblock")
+        distances.distance_op("nosuchmetric")
