@@ -38,8 +38,27 @@ Phases, each of which raises on failure (exit code != 0):
    2**16, ``sample(1000, n_sim=2**20)``; two weight vectors, the second
    finite and positive, sorted finite 1-D distances, one seed giving one
    result, posterior means inside the prior.
-9. Profile a few batches of each graph: device busy share of the wall time
-   and the time by kernel (the top five printed, the table written).
+9. SMC proposals on the card: ``SMC.prepare_new_batch(i)`` of a round
+   whose mixture is wide enough to force prior-support redraws, against a
+   proposal builder made afresh from the same population, bit for bit; then
+   ``SMC(...).sample(100, quantiles=[0.2])`` fused and batch at a time on
+   both MA2 graphs, bit for bit.
+10. SMC on gauss2d at the JAX bench's operating point
+   (``bench.py:_bench_smc_gauss2d``): ``SMC(m["d"], batch_size=16384,
+   seed=4).sample(2000, thresholds=[2.0, 1.0, 0.5, 0.3])`` after a warm-up
+   with seed 3, gated at |weighted posterior mean - observed sample mean|
+   < 0.05 per dimension; wall seconds, simulations, simulations per second
+   and batches per round.
+11. SMC on both MA2 graphs at the JAX accuracy gate's settings (batch
+   2000, seed 3, ``sample(500, quantiles=[0.25] * 3)``), gated at 0.05
+   from (0.6, 0.2); K1 must run once per batch of all rounds on the kernel
+   graph and never on the plain one.
+12. ``AdaptiveThresholdSMC`` and ``AdaptiveDistanceSMC`` on the plain MA2
+   graph at the JAX gate's settings, gated at 0.05; the density-ratio fit
+   must have run on the card.
+13. Profile a few batches of each rejection graph and the whole gauss2d SMC
+   run: device busy share of the wall time and the time by kernel (the top
+   five printed, the table written).
 
 The last two lines are a JSON object describing each kernel and a JSON
 object ``{"ok": true, "device": {...}}``.
@@ -86,6 +105,15 @@ GNK_GATE = np.array([0.1, 0.1, 0.5, 0.05])
 #   print([float(r.samples[k].mean()) for k in "ABgk"])'
 GNK_JAX_MEANS = np.array([3.417664051055908, 1.4710832834243774,
                           4.9136834144592285, 0.509651243686676])
+
+# SMC: the JAX bench's gauss2d phase (bench.py:_bench_smc_gauss2d) and the
+# JAX accuracy gates' MA2 settings (tests/functional/test_inference.py)
+GAUSS_KW = dict(n_obs=50, true_params=[4.0, 2.0], nd_mean=True,
+                cov_matrix=np.eye(2))
+GAUSS_BATCH = 16384
+GAUSS_N = 2000
+GAUSS_THRESHOLDS = [2.0, 1.0, 0.5, 0.3]
+SMC_BATCH = 2000
 
 
 def log(*args):
@@ -139,6 +167,25 @@ def prior_params(batch, device, seed):
     return t1.contiguous(), t2.contiguous()
 
 
+def smc_proposal_params(batch, device):
+    """(t1, t2) as the MA2 kernel graph's SMC hands them to K1: the columns
+    of one ``_gm_overrides_fn`` batch, made contiguous as the graph's op
+    makes them.  The mixture has 500 components at prior draws."""
+    from elfi_tpu_torch.methods.samplers import _gm_overrides_fn
+    from elfi_tpu_torch.methods.utils import GMDistribution
+    from elfi_tpu_torch.model.extensions import ModelPrior
+    from elfi_tpu_torch.models import ma2_kernel
+    prior = ModelPrior(ma2_kernel.get_model(seed_obs=SEED_OBS),
+                       device=device).traceable_logpdf()
+    means = torch.stack(prior_params(500, device, seed=17), dim=1)
+    proposal = GMDistribution.prepare(means, np.diag([0.05, 0.05]),
+                                      device=device)
+    cols = _gm_overrides_fn(("t1", "t2"), batch, prior, proposal, 23)(1)
+    check(not cols["t1"].is_contiguous(), "proposal columns are not views")
+    return (cols["t1"].to(torch.float32).contiguous(),
+            cols["t2"].to(torch.float32).contiguous())
+
+
 def phase_kernel_checks(device):
     """K1 against its plain version on the card, and the times per call."""
     from elfi_tpu_torch.ops import topk
@@ -148,9 +195,14 @@ def phase_kernel_checks(device):
     obs = observed_autocovs(device)
     result = {}
 
-    # the same noise in both: the kernel's arithmetic, exactly
-    for batch in (2**16, KERNEL_BATCH):
-        t1, t2 = prior_params(batch, device, seed=batch)
+    # the same noise in both: the kernel's arithmetic, exactly; at the
+    # rejection batches on prior draws, and at the SMC batch (not a
+    # multiple of the 256-thread block) on the columns of a proposal batch
+    for batch in (2**16, KERNEL_BATCH, SMC_BATCH):
+        if batch == SMC_BATCH:
+            t1, t2 = smc_proposal_params(batch, device)
+        else:
+            t1, t2 = prior_params(batch, device, seed=batch)
         g = torch.Generator(device=device).manual_seed(11)
         noise = torch.randn((batch, N_OBS + 2), generator=g, device=device)
         d_k = ma2_distance_noise(t1, t2, obs, noise)
@@ -489,12 +541,210 @@ def phase_adaptive(device):
     return dict(seconds=dt, means=means.tolist(), w=w1[1].tolist())
 
 
+def weighted_means(res):
+    w = res.weights / res.weights.sum()
+    return np.array([float(np.sum(np.ravel(res.samples[k]) * w))
+                     for k in res.samples])
+
+
+def phase_smc_proposals(device):
+    """Proposals and whole single-round runs: fused == batch at a time."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods.samplers import _gm_overrides_fn
+    from elfi_tpu_torch.methods.utils import GMDistribution
+    from elfi_tpu_torch.models import ma2, ma2_kernel
+    from elfi_tpu_torch.utils import get_sub_seed
+    from elfi_tpu_torch.utils.rng import fold_in, generator
+
+    batch, wide = 2**14, np.diag([0.4, 0.3])
+    smc = et.SMC(ma2.get_model(seed_obs=SEED_OBS)["d"], batch_size=batch,
+                 seed=13, device=device)
+    smc.sample(1000, quantiles=[0.5], bar=False)
+    pop = smc._populations[-1]
+    pop.meta["cov"] = wide         # wide enough that draws leave the prior
+    smc.sample(1000, quantiles=[0.5], bar=False)      # round 1 from it
+    proposal = GMDistribution.prepare(pop.means, wide, pop.weights,
+                                      device=device)
+    prior = smc._prior.traceable_logpdf()
+    builder = _gm_overrides_fn(smc.parameter_names, batch, prior, proposal,
+                               get_sub_seed(13, 1))
+    key = fold_in(get_sub_seed(13, 1), 0x9E3779B9)
+    for i in (3, 4):
+        a, b = smc.prepare_new_batch(i), builder(i)
+        check(all(torch.equal(a[k], b[k]) for k in ("t1", "t2")),
+              f"SMC proposals of batch {i} differ between the two paths")
+        x = torch.stack([a["t1"], a["t2"]], dim=1)
+        check(bool(torch.isfinite(prior(x)).all()),
+              "SMC proposals outside the prior support")
+        first = GMDistribution._draw(proposal, batch,
+                                     generator(fold_in(key, i), device))
+        out = float((~torch.isfinite(prior(first))).float().mean())
+        log(f"SMC proposals batch {i} of {batch}: prepare_new_batch == "
+            f"fused builder bit for bit; first draw {out!r} outside the "
+            "prior, redrawn")
+        check(out > 0, "the wide mixture forced no redraw")
+    for mod in (ma2, ma2_kernel):
+        kw = dict(batch_size=500, seed=31, device=device)
+        node = mod.get_model(seed_obs=SEED_OBS)["d"]
+        a = et.SMC(node, **kw).sample(100, quantiles=[0.2], bar=False,
+                                      fused=True)
+        b = et.SMC(node, **kw).sample(100, quantiles=[0.2], bar=False,
+                                      fused=False)
+        for k in a.outputs:
+            check(np.array_equal(a.outputs[k], b.outputs[k]),
+                  f"{mod.__name__}: SMC fused and batch-at-a-time differ "
+                  f"in {k}")
+    log("SMC sample(100, quantiles=[0.2]): fused == batch-at-a-time on the "
+        "card, both MA2 graphs")
+
+
+def timed_smc(make, n_samples, **kw):
+    """One SMC run from ``make()``; returns (result, seconds, sampler),
+    the clock ended by a synchronise."""
+    smc = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = smc.sample(n_samples, bar=False, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, smc
+
+
+def phase_gauss_smc(device):
+    """gauss2d SMC at the JAX bench's operating point."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import gauss
+    m = gauss.get_model(**GAUSS_KW)
+    obs_mean = np.asarray(m.observed["gauss"]).reshape(-1, 2).mean(0)
+
+    def make(seed):
+        return lambda: et.SMC(m["d"], batch_size=GAUSS_BATCH, seed=seed,
+                              device=device)
+
+    timed_smc(make(3), GAUSS_N, thresholds=GAUSS_THRESHOLDS)    # warm-up
+    res, dt, _ = timed_smc(make(4), GAUSS_N, thresholds=GAUSS_THRESHOLDS)
+    means = weighted_means(res)
+    err = np.abs(means - obs_mean)
+    per_round = [int(p.meta["n_batches"]) for p in res.populations]
+    d = res.discrepancies
+    check(res.n_populations == 4, f"gauss2d SMC: {res.n_populations} rounds")
+    check(res.samples_array.shape == (GAUSS_N, 2)
+          and bool(np.all(np.isfinite(res.samples_array))),
+          "gauss2d SMC: bad samples")
+    check(bool(np.all(np.isfinite(res.weights)))
+          and bool(np.all(res.weights >= 0)), "gauss2d SMC: bad weights")
+    check(float(np.max(d)) <= GAUSS_THRESHOLDS[-1],
+          f"gauss2d SMC: distance {float(np.max(d))} above the threshold")
+    check(sum(per_round) == res.n_batches
+          and res.n_sim == res.n_batches * GAUSS_BATCH,
+          "gauss2d SMC: batch counts disagree")
+    sims_s = res.n_sim / dt
+    log(f"gauss2d SMC: weighted means {means.tolist()!r}, observed mean "
+        f"{obs_mean.tolist()!r}, |err| {err.tolist()!r} (gate < {GATE})")
+    log(f"gauss2d SMC: batch {GAUSS_BATCH}, batches per round {per_round}, "
+        f"{res.n_sim} sims in {dt!r} s = {sims_s!r} sims/s")
+    check(bool(np.all(err < GATE)), f"gauss2d SMC gate failed: {means}")
+    return dict(seconds=dt, n_sim=res.n_sim, sims_per_s=sims_s,
+                n_batches=res.n_batches, batches_per_round=per_round,
+                means=means.tolist(), observed_mean=obs_mean.tolist())
+
+
+def check_ma2_gate(name, res):
+    means = weighted_means(res)
+    err = np.abs(means - TRUE_PARAMS)
+    check(bool(np.all(np.isfinite(res.samples_array))),
+          f"{name}: non-finite samples")
+    log(f"{name}: weighted means {means.tolist()!r} |err| {err.tolist()!r} "
+        f"(gate < {GATE}); {res.n_populations} rounds, {res.n_batches} "
+        f"batches, {res.n_sim} sims")
+    check(bool(np.all(err < GATE)), f"{name}: MA2 gate failed: {means}")
+    return means
+
+
+def phase_ma2_smc(device):
+    """SMC on both MA2 graphs; K1 runs once per batch on the kernel graph."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import ma2, ma2_kernel
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    out = {}
+    for name, mod, kernel in (("ma2 smc plain graph", ma2, False),
+                              ("ma2 smc kernel graph", ma2_kernel, True)):
+        node = mod.get_model(seed_obs=SEED_OBS)["d"]
+        ma2_distance.launches = 0
+        res, dt, _ = timed_smc(
+            lambda: et.SMC(node, batch_size=SMC_BATCH, seed=3,
+                           device=device),
+            500, quantiles=[0.25, 0.25, 0.25])
+        launches = ma2_distance.launches
+        means = check_ma2_gate(name, res)
+        per_round = [int(p.meta["n_batches"]) for p in res.populations]
+        expect = res.n_batches if kernel else 0
+        log(f"{name}: {dt!r} s, batches per round {per_round}; "
+            f"ma2_distance launches {launches} (expected {expect})")
+        check(sum(per_round) == res.n_batches, f"{name}: batch counts")
+        check(launches == expect, f"{name}: ma2_distance launched "
+              f"{launches} times, expected {expect}")
+        out[name] = dict(seconds=dt, launches=launches, means=means.tolist(),
+                         n_batches=res.n_batches, batches_per_round=per_round)
+    return out
+
+
+def phase_adaptive_smc(device):
+    """The adaptive SMC samplers on the plain MA2 graph."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods.density_ratio_estimation import \
+        DensityRatioEstimation
+    from elfi_tpu_torch.models import ma2
+    out = {}
+    node = ma2.get_model(seed_obs=SEED_OBS)["d"]
+    res, dt, smc = timed_smc(lambda: et.AdaptiveThresholdSMC(
+        node, batch_size=SMC_BATCH, seed=4, initial_quantile=0.25,
+        densratio_estimation=DensityRatioEstimation(
+            n=80, epsilon=0.001, max_iter=150, abs_tol=0.01, device=device),
+        device=device), 400, max_iter=4)
+    check(smc.densratio._alpha.device.type == "cuda",
+          "the density-ratio fit did not run on the card")
+    means = check_ma2_gate("AdaptiveThresholdSMC", res)
+    quantiles = [q for q in smc.schedule.quantiles if q is not None]
+    log(f"AdaptiveThresholdSMC: {dt!r} s; quantiles {quantiles!r}")
+    out["AdaptiveThresholdSMC"] = dict(seconds=dt, means=means.tolist(),
+                                       n_batches=res.n_batches)
+
+    m = ma2.get_model(seed_obs=SEED_OBS)
+    et.AdaptiveDistance(m["S1"], m["S2"], model=m, name="ad")
+    res, dt, _ = timed_smc(lambda: et.AdaptiveDistanceSMC(
+        m["ad"], batch_size=SMC_BATCH, seed=10, device=device), 500,
+        rounds=3, quantile=0.25)
+    check(len(res.adaptive_distance_w) == 3, "AdaptiveDistanceSMC: weights")
+    means = check_ma2_gate("AdaptiveDistanceSMC", res)
+    log(f"AdaptiveDistanceSMC: {dt!r} s")
+    out["AdaptiveDistanceSMC"] = dict(seconds=dt, means=means.tolist(),
+                                      n_batches=res.n_batches)
+    return out
+
+
+def device_table(prof):
+    """(events, device microseconds) of a profile: kernels and memsets
+    only, since an operator's own device time repeats its kernels'."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    return events, sum(e.self_device_time_total for e in events
+                       if e.device_type == DeviceType.CUDA)
+
+
+def log_top(events, device_us, nb):
+    from torch.autograd import DeviceType
+    top = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)[:5]
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3 / nb:.4f} ms/batch "
+            f"({e.self_device_time_total / device_us:.3f}) {e.key[:90]}")
+
+
 def phase_profile(device, main_path):
     """Profile a few batches of each graph: device time per batch, and the
     main path's device busy share (that time over the main path's wall time
     per batch).  Tables go to build/profiles/."""
     import elfi_tpu_torch as et
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from elfi_tpu_torch.models import gnk, gnk_kernel, ma2, ma2_kernel
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -513,11 +763,7 @@ def phase_profile(device, main_path):
                                  ProfilerActivity.CUDA]) as prof:
             rej.sample(N_SAMPLES, n_sim=nb * bs, bar=False)
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        # kernels and memsets only: an operator's own device time repeats
-        # the time of the kernels it launched
-        device_us = sum(e.self_device_time_total for e in events
-                        if e.device_type == DeviceType.CUDA)
+        events, device_us = device_table(prof)
         per_batch_ms = device_us / 1e3 / nb
         run = main_path[name]
         wall_ms = run["seconds"] * 1e3 / run["n_batches"]
@@ -530,11 +776,32 @@ def phase_profile(device, main_path):
             f"batches of {bs}; main path {wall_ms!r} ms/batch wall, so the "
             f"device is busy {run['busy_share']!r} of it; table in "
             f"build/profiles/{fname}")
-        top = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)[:5]
-        for e in top:
-            log(f"  {e.self_device_time_total / 1e3 / nb:.4f} ms/batch "
-                f"({e.self_device_time_total / device_us:.3f}) {e.key[:90]}")
+        log_top(events, device_us, nb)
+
+    # the whole gauss2d SMC run of phase 10, seed 4 again: the same batches
+    from elfi_tpu_torch.models import gauss
+    m = gauss.get_model(**GAUSS_KW)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = et.SMC(m["d"], batch_size=GAUSS_BATCH, seed=4,
+                     device=device).sample(GAUSS_N,
+                                           thresholds=GAUSS_THRESHOLDS,
+                                           bar=False)
+        torch.cuda.synchronize()
+    events, device_us = device_table(prof)
+    run = main_path["gauss2d smc"]
+    nb = res.n_batches
+    check(nb == run["n_batches"], "gauss2d SMC: the profiled run differs")
+    run["device_ms_per_batch"] = device_us / 1e3 / nb
+    run["busy_share"] = device_us / 1e6 / run["seconds"]
+    (OUT_DIR / "profile_gauss2d_smc.txt").write_text(events.table(
+        sort_by="self_device_time_total", row_limit=30))
+    log(f"profile gauss2d smc: device {run['device_ms_per_batch']!r} "
+        f"ms/batch over all {nb} batches of {GAUSS_BATCH}; main run "
+        f"{run['seconds'] * 1e3 / nb!r} ms/batch wall, so the device is "
+        f"busy {run['busy_share']!r} of it; table in "
+        "build/profiles/profile_gauss2d_smc.txt")
+    log_top(events, device_us, nb)
 
 
 def main():
@@ -566,6 +833,10 @@ def main():
     k2_checks = phase_gnk_kernel_checks(device)
     main_path.update(phase_gnk_main_path(device))
     adaptive = phase_adaptive(device)
+    phase_smc_proposals(device)
+    main_path["gauss2d smc"] = phase_gauss_smc(device)
+    main_path.update(phase_ma2_smc(device))
+    adaptive.update(phase_adaptive_smc(device))
     phase_profile(device, main_path)
 
     log(json.dumps({"main_path": main_path,
@@ -574,12 +845,19 @@ def main():
                                  f"gnk_{GNK_BATCH}": k2_checks["merge_ms"]},
                     "adaptive": adaptive,
                     "card": card}))
+    k1_launches = (main_path["kernel graph"]["launches"]
+                   + main_path["ma2 smc kernel graph"]["launches"])
     log(json.dumps({"kernels": [{
         "name": "ma2_distance",
         "route": "cuda",
         "source": "elfi_tpu_torch/csrc/ma2_distance.cu",
         "replaces": "elfi_tpu/ops/pallas_kernels.py:71",
-        "launches": main_path["kernel graph"]["launches"],
+        "launches": k1_launches,
+        "launches_by_path": {
+            "ma2 rejection kernel graph":
+                main_path["kernel graph"]["launches"],
+            "ma2 smc kernel graph":
+                main_path["ma2 smc kernel graph"]["launches"]},
         "max_abs_err": k1_checks["max_abs_err"],
         "ms": k1_checks["ms"],
         "plain_ms": k1_checks["plain_ms"],

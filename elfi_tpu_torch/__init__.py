@@ -5,17 +5,22 @@ code is plain PyTorch on tensors with an explicit device and explicit
 ``torch.Generator`` streams, plus hand-written CUDA kernels where the JAX
 package had Pallas kernels.  It never imports JAX or ``elfi_tpu``.
 
-So far it covers rejection ABC: the model DSL, the per-batch program, the
-native backend, ``Rejection`` with its fused loop and the adaptive distance,
-the top-N merge, the distance metrics, the MA2 and g-and-k models, and the
+So far it covers rejection and SMC ABC: the model DSL, the per-batch
+program, the native backend, ``Rejection`` with its fused loop and the
+adaptive distance, ``SMC``, ``AdaptiveDistanceSMC`` and
+``AdaptiveThresholdSMC`` with the joint prior ``ModelPrior``, the
+Gaussian-mixture proposal and the density-ratio estimator, the top-N
+merge, the distance metrics, the MA2, g-and-k and Gaussian models, and the
 fused MA2 and g-and-k distance kernels.
 """
 
 from .model import (AdaptiveDistance, Constant, Distance,  # noqa: F401
-                    Model, Operation, Prior, Simulator, Summary)
+                    Model, ModelPrior, Operation, Prior, Simulator, Summary)
 from .ops.distributions import Distribution  # noqa: F401
 from .parallel import (NativeBackend, get_client, reset_client,  # noqa: F401
                        set_client)
-from .methods import Rejection, Sample  # noqa: F401
+from .methods import (AdaptiveDistanceSMC,  # noqa: F401
+                      AdaptiveThresholdSMC, Rejection, Sample, SMC,
+                      SmcSample)
 
 __version__ = "0.1.0"

@@ -1,14 +1,17 @@
 """Carry the JAX package's state into the port.
 
-The system has no learned weights: its state is a model's observed arrays
-and the rejection sampler's top-N sample buffer.  Both are dicts of arrays;
+The system has no learned weights: its state is a model's observed arrays,
+the rejection sampler's top-N sample buffer and SMC's populations.  The
+first two are dicts of arrays;
 :func:`from_numpy_state` turns such a dict, taken to numpy on the JAX side
 (``jax.device_get(rej.state["samples"])``, including ``__key``, or
 ``model.observed``), into tensors on ``device``, so both packages can
 compute from the same state.  An adaptive distance's state is a host-side
 holder of weight vectors and Welford accumulators;
 :func:`adaptive_state_from_numpy` carries the JAX node's holder into the
-port's node.
+port's node.  :func:`population_from_numpy` turns one round's population of
+a JAX ``SmcSample`` into a port ``Sample`` that can stand as
+``SMC._populations[-1]``, the population the next round proposes from.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_numpy_state", "adaptive_state_from_numpy"]
+__all__ = ["from_numpy_state", "adaptive_state_from_numpy",
+           "population_from_numpy"]
 
 
 def from_numpy_state(d, device):
@@ -46,3 +50,22 @@ def adaptive_state_from_numpy(holder, node):
             st.pop(k, None)
     node._bump_version()
     return st
+
+
+def population_from_numpy(outputs, weights, cov, parameter_names,
+                          discrepancy_name=None, **meta):
+    """An SMC population for the port from numpy: the ``outputs``,
+    ``weights`` and ``meta["cov"]`` of a JAX ``SmcSample.populations[r]``
+    (``{k: np.asarray(v)}``, ``np.asarray(pop.weights)``,
+    ``pop.meta["cov"]``).  The result carries ``means`` (the parameter
+    matrix), ``weights`` and ``meta`` (``cov`` and any other ``meta``
+    given, such as ``threshold`` and ``n_batches``), as the port's
+    ``SMC._extract_population`` leaves them; the arrays are copies."""
+    from .methods.results import Sample
+    from .methods.utils import batch_to_arr2d
+    outputs = {k: np.array(v) for k, v in outputs.items()}
+    pop = Sample("Rejection within SMC-ABC", outputs, parameter_names,
+                 discrepancy_name=discrepancy_name, weights=np.array(weights),
+                 cov=np.array(cov, np.float64), **meta)
+    pop.means = batch_to_arr2d(outputs, pop.parameter_names)
+    return pop

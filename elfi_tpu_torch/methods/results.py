@@ -14,7 +14,7 @@ import numpy as np
 
 from .utils import compute_ess, normalize_weights, weighted_sample_quantile
 
-__all__ = ["ParameterInferenceResult", "Sample"]
+__all__ = ["ParameterInferenceResult", "Sample", "SmcSample"]
 
 
 class ParameterInferenceResult:
@@ -154,3 +154,29 @@ class Sample(ParameterInferenceResult):
                 json.dump(payload, f)
         else:
             raise ValueError("Unknown extension; use .pkl/.csv/.json")
+
+
+class SmcSample(Sample):
+    """SMC result with the population of every round.  Plotting waits for
+    the visualization slice."""
+
+    def __init__(self, method_name, outputs, parameter_names, populations,
+                 **kwargs):
+        super().__init__(method_name=method_name, outputs=outputs,
+                         parameter_names=parameter_names, **kwargs)
+        self.populations = populations
+
+    @property
+    def n_populations(self):
+        return len(self.populations)
+
+    def posterior_means(self, round=-1):
+        return self.populations[round].sample_means
+
+    def sample_means_summary(self, all=False):
+        if not all:
+            self.summary()
+            return
+        for i, pop in enumerate(self.populations):
+            sys.stdout.write(f"Population {i}: "
+                             + pop.parameter_summary_string())

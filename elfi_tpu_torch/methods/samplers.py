@@ -1,5 +1,5 @@
-"""ABC rejection sampling (counterpart of :mod:`elfi_tpu.methods.samplers`;
-SMC and the adaptive SMC samplers come later).
+"""Sampling-based ABC inference: Rejection, SMC, AdaptiveDistanceSMC and
+AdaptiveThresholdSMC (counterpart of :mod:`elfi_tpu.methods.samplers`).
 
 The running top-N sample buffer lives on the device and is maintained by
 :mod:`elfi_tpu_torch.ops.topk`.  ``Rejection.sample`` runs a FUSED path
@@ -9,6 +9,13 @@ anything back, except, in threshold mode, one acceptance count per chunk
 of batches.  The fused and the batch-at-a-time paths call the same
 per-batch function with the same stream seeds and the same merge, so they
 give identical samples for a seed.
+
+SMC runs each round as such a rejection run.  Rounds >= 1 draw their
+parameters from a Gaussian mixture over the previous population; one
+function builds a batch's proposals for both paths, from a generator
+seeded on the host by (round seed, batch index), so fused and
+batch-at-a-time rounds propose the same parameters.  Batch indices run on
+across rounds, so every round simulates with fresh noise.
 """
 
 from __future__ import annotations
@@ -20,13 +27,18 @@ import numpy as np
 import torch
 
 from ..compile.compiler import compile_program
+from ..model.extensions import ModelPrior
 from ..model.model import AdaptiveDistance
 from ..ops import topk
 from ..parallel.backends import NativeBackend
+from ..utils import get_sub_seed
+from ..utils.rng import fold_in, generator
 from .base import Sampler, _ProgressBar
-from .results import Sample
+from .results import Sample, SmcSample
+from .utils import (GMDistribution, batch_to_arr2d, weighted_sample_quantile,
+                    weighted_var)
 
-__all__ = ["Rejection"]
+__all__ = ["Rejection", "SMC", "AdaptiveDistanceSMC", "AdaptiveThresholdSMC"]
 
 logger = logging.getLogger(__name__)
 
@@ -34,6 +46,20 @@ logger = logging.getLogger(__name__)
 #: the acceptance count in threshold mode.  Not tuned on this hardware.
 _FUSED_CHUNK = 16
 _MAX_BATCHES = 100_000
+#: folded into a round's seed to key its proposal streams (the JAX
+#: package's constant)
+_PROPOSAL_SALT = 0x9E3779B9
+
+
+def _float32_threshold(t, device):
+    """A threshold as the JAX package compares it (``jnp.asarray(t,
+    jnp.float32)``): ``inf`` for None, a float32 value for a scalar, and a
+    float32 tensor on ``device`` for a vector (one bound per distance
+    column)."""
+    if t is None:
+        return inf
+    t = np.asarray(t, np.float32)
+    return float(t) if t.ndim == 0 else torch.as_tensor(t, device=device)
 
 
 class Rejection(Sampler):
@@ -70,6 +96,7 @@ class Rejection(Sampler):
             n_batches = self.max_parallel_batches
         self.objective = dict(n_samples=n_samples, threshold=threshold,
                               n_batches=n_batches)
+        self._threshold = _float32_threshold(threshold, self.device)
         self.batches.reset()
 
     # -- batch-at-a-time path ------------------------------------------------
@@ -91,9 +118,10 @@ class Rejection(Sampler):
             self.state["n_accepted"] += self.batch_size
 
     def _merge_threshold(self):
-        """The threshold as a float32 value, as the JAX package compares."""
-        t = self.objective.get("threshold")
-        return inf if t is None else float(np.float32(t))
+        """The objective's threshold as :func:`_float32_threshold` gives it,
+        made once per objective (a vector's copy to the device waits for
+        the device)."""
+        return self._threshold
 
     def _update_objective_n_batches(self):
         """Re-estimate the batches needed under a fixed threshold."""
@@ -182,12 +210,20 @@ class Rejection(Sampler):
         self.batches.reset()
         return self.extract_result()
 
-    def _run_fused(self, prog, threshold):
-        """Queue batches ``0, 1, ...`` and their merges on the device.
-        Without a threshold the host never waits for the device here; with
-        one it reads the acceptance count once per ``_FUSED_CHUNK``
-        batches."""
-        seed = self.seed
+    def _run_fused(self, prog, threshold, seed=None, start_index=0,
+                   overrides_spec=None):
+        """Queue batches ``start_index, start_index + 1, ...`` and their
+        merges on the device.  Without a threshold the host never waits for
+        the device here; with one it reads the acceptance count once per
+        ``_FUSED_CHUNK`` batches.
+
+        ``overrides_spec`` (fused SMC rounds) is a per-batch builder
+        ``fn(batch_index) -> {node: tensor}`` whose values replace those
+        nodes; ``prog`` must declare them as overrides.
+        ``state["n_batches"]`` counts this run's batches only.
+        """
+        if seed is None:
+            seed = self.seed
         fn = prog.traceable(self.batch_size)
         disc = self.discrepancy_name
         n = self.objective["n_samples"]
@@ -197,8 +233,8 @@ class Rejection(Sampler):
         def run(start, length):
             nonlocal buffers
             accs = []
-            for i in range(start, start + length):
-                out = fn(seed, i, {})
+            for i in range(start_index + start, start_index + start + length):
+                out = fn(seed, i, overrides_spec(i) if overrides_spec else {})
                 if buffers is None:
                     buffers = topk.init_buffers(n, out, disc)
                 buffers, acc = topk.merge_scan(buffers, out, thr, disc)
@@ -237,3 +273,482 @@ class Rejection(Sampler):
         self.state["n_sim"] = done * self.batch_size
         self.state["samples"] = buffers
         self.objective["n_batches"] = done
+
+
+class _RoundSchedule:
+    """Acceptance schedule for a run of SMC rounds.
+
+    Global round ``r`` is driven either by an explicit distance threshold
+    or by a selection quantile that gets RESOLVED into a threshold against
+    round ``r-1``'s population when the round begins.  Continuation
+    (calling ``sample`` again) appends rounds after the existing ones, so
+    global round numbering survives across calls.  AdaptiveThresholdSMC
+    fills its quantile slots between rounds from the density-ratio fit.
+    """
+
+    def __init__(self):
+        self.thresholds = []
+        self.quantiles = []
+
+    @property
+    def n_rounds(self):
+        return len(self.thresholds)
+
+    def extend(self, n, thresholds=None, quantiles=None):
+        for i in range(n):
+            self.thresholds.append(
+                None if thresholds is None else thresholds[i])
+            self.quantiles.append(
+                None if quantiles is None else quantiles[i])
+
+
+def _gm_overrides_fn(parameter_names, batch_size, prior_logpdf, proposal,
+                     round_seed):
+    """Per-batch proposal builder of an SMC round >= 1: ``fn(batch_index)
+    -> {parameter: (batch_size,) tensor}``.
+
+    ``proposal`` is the round's :class:`~.utils.PreparedGM`.
+    Batch ``i`` draws, prior-support redraws included, from a generator on
+    the mixture's device seeded with ``fold_in(fold_in(round_seed,
+    0x9E3779B9), i)``, computed on the host.  The draws depend on nothing
+    else, so the batch-at-a-time path (:meth:`SMC.prepare_new_batch`) and
+    the fused path, which both call such a builder, propose the same
+    tensors for a batch.
+    """
+    pnames = tuple(parameter_names)
+    key = fold_in(round_seed, _PROPOSAL_SALT)
+    device = proposal.means.device
+
+    def fn(batch_index):
+        params = GMDistribution.rvs(
+            proposal, size=batch_size, prior_logpdf=prior_logpdf,
+            generator=generator(fold_in(key, batch_index), device))
+        return {p: params[:, j] for j, p in enumerate(pnames)}
+
+    return fn
+
+
+class SMC(Sampler):
+    """Sequential Monte Carlo ABC (reference ``samplers.py:320-559``)."""
+
+    def __init__(self, model, discrepancy_name=None, output_names=None,
+                 **kwargs):
+        model, discrepancy_name = self._resolve_model(model, discrepancy_name)
+        output_names = [discrepancy_name] + model.parameter_names \
+            + (output_names or [])
+        super().__init__(model, output_names, **kwargs)
+        self._prior = ModelPrior(self.model, device=self.device)
+        self._prior_logpdf = self._prior.traceable_logpdf()
+        self.discrepancy_name = discrepancy_name
+        self.state["round"] = 0
+        self._populations = []
+        self._rejection = None
+        self._round_seed = None
+        self._proposal = None
+        self._propose = None
+        self.schedule = _RoundSchedule()
+
+    def sample(self, n_samples, thresholds=None, quantiles=None, fused=None,
+               bar=True, **kwargs):
+        """Sample from the SMC posterior.
+
+        ``fused=True`` (default when eligible) queues each round's
+        simulate -> distance -> top-k loop on the device from one host
+        loop, with the Gaussian-mixture proposal draws of the batch-at-a-time
+        path.  Proposals and merges are bit-identical to the batch-at-a-time
+        path; only the stopping point of threshold rounds differs (the
+        fused loop stops at chunk granularity once ``n_samples`` are
+        accepted, the other at its dynamic batch estimate).
+        """
+        self.bar = bar
+        fused, prog = self._resolve_fused(fused, kwargs)
+        if not fused:
+            return super().sample(n_samples, thresholds=thresholds,
+                                  quantiles=quantiles, bar=bar, **kwargs)
+        return self._sample_fused(
+            n_samples, dict(thresholds=thresholds, quantiles=quantiles),
+            prog)
+
+    # adaptive DISTANCES need per-batch host updates (never fused);
+    # adaptive thresholds only do host work BETWEEN rounds (fusable)
+    _fused_capable = True
+
+    def _resolve_fused(self, fused, kwargs):
+        eligible = (self._fused_capable
+                    and isinstance(self.client, NativeBackend)
+                    and not kwargs)
+        prog = None
+        if eligible:
+            prog = compile_program(self.model, tuple(self.output_names),
+                                   device=self.device)
+            eligible = not prog.host
+        if fused is None:
+            fused = eligible
+        if fused and not eligible:
+            raise ValueError("fused=True requires: no adaptive distance, "
+                             "native backend, no host nodes")
+        return fused, prog
+
+    def _fused_advance_round(self):
+        """Round transition for the fused driver; returns False when the
+        run is complete (mirrors the unfused ``update`` logic)."""
+        if self.state["round"] < self.objective["round"]:
+            self._advance_round()
+            return True
+        return False
+
+    def _sample_fused(self, n_samples, objective_kwargs, prog):
+        self.set_objective(n_samples, **objective_kwargs)
+        # rounds > 0 feed the parameter nodes as declared overrides
+        prog_prop = compile_program(
+            self.model, tuple(self.output_names),
+            override_names=tuple(sorted(self.parameter_names)),
+            device=self.device)
+        start = self.state.get("_next_batch_index", 0)
+        pb = _ProgressBar() if self.bar else None
+        while True:
+            rej = self._rejection
+            rej.bar = False
+            rnd = self.state["round"]
+            rej._run_fused(prog if rnd == 0 else prog_prop,
+                           rej.objective.get("threshold"),
+                           seed=self.seed, start_index=start,
+                           overrides_spec=self._propose if rnd else None)
+            start += rej.state["n_batches"]
+            self.state["n_sim"] += rej.state["n_sim"]
+            self.state["n_batches"] += rej.state["n_batches"]
+            if pb:
+                pb.update(rnd + 1, self.objective["round"] + 1)
+            if not self._fused_advance_round():
+                break
+        if pb:
+            pb.finish()
+        self.state["_next_batch_index"] = start
+        return self.extract_result()
+
+    def set_objective(self, n_samples, thresholds=None, quantiles=None):
+        if thresholds is None and quantiles is None:
+            raise ValueError("Either thresholds or quantiles is required")
+        # continuation: new rounds append after the stored populations
+        self.state["round"] = len(self._populations)
+        given = thresholds if thresholds is not None else quantiles
+        self.schedule.extend(len(given), thresholds=thresholds,
+                             quantiles=quantiles)
+        self.objective.update(dict(n_samples=n_samples,
+                                   n_batches=self.max_parallel_batches,
+                                   round=self.schedule.n_rounds - 1))
+        self._begin_round()
+        self._update_objective()
+
+    def extract_result(self):
+        pop = self._extract_population()
+        self._populations.append(pop)
+        return SmcSample(outputs=pop.outputs,
+                         populations=self._populations.copy(),
+                         weights=pop.weights, threshold=pop.meta["threshold"],
+                         **self._extract_result_kwargs())
+
+    def update(self, batch, batch_index):
+        super().update(batch, batch_index)
+        self._rejection.update(batch, batch_index)
+        if self._rejection.finished:
+            self.batches.cancel_pending()
+            self._advance_round()
+        self._update_objective()
+
+    def _advance_round(self):
+        if self.state["round"] < self.objective["round"]:
+            self._populations.append(self._extract_population())
+            self.state["round"] += 1
+            self._begin_round()
+
+    def prepare_new_batch(self, batch_index):
+        if self.state["round"] == 0:
+            return None
+        return self._propose(batch_index)
+
+    def _begin_round(self):
+        """Enter round ``state['round']``: build its internal Rejection and
+        give it the round's acceptance rule (resolving a scheduled quantile
+        into a concrete threshold against the previous population)."""
+        r = self.state["round"]
+        self._spawn_round_rejection(r)
+        q = self.schedule.quantiles[r]
+        if r == 0 and q is not None:
+            # no population to take a quantile of yet
+            self._rejection.set_objective(self.objective["n_samples"],
+                                          quantile=q)
+            return
+        if q is not None:
+            self.schedule.thresholds[r] = self._quantile_threshold(r, q)
+        self._rejection.set_objective(
+            self.objective["n_samples"],
+            threshold=self.current_population_threshold)
+
+    def _quantile_threshold(self, r, q):
+        """Threshold for round ``r`` = weighted q-quantile of round
+        ``r-1``'s accepted discrepancies."""
+        prev = self._populations[r - 1]
+        return weighted_sample_quantile(x=prev.discrepancies, alpha=q,
+                                        weights=prev.weights)
+
+    def _spawn_round_rejection(self, r):
+        # Batch indices keep increasing GLOBALLY across rounds (fresh
+        # simulator noise every round) because this SMC instance owns the
+        # BatchHandler; the per-round Rejection only consumes batches, and
+        # its sub-seed scopes the round bookkeeping.  The round's mixture
+        # goes to the device once, here; the proposals and the weighing of
+        # the round's population both use it.
+        seed = self.seed if r == 0 else get_sub_seed(self.seed, r)
+        self._round_seed = seed
+        self._proposal = None if r == 0 else GMDistribution.prepare(
+            *self._gm_params, device=self.device)
+        self._propose = None if r == 0 else _gm_overrides_fn(
+            self.parameter_names, self.batch_size, self._prior_logpdf,
+            self._proposal, seed)
+        self._rejection = Rejection(
+            self.model, discrepancy_name=self.discrepancy_name,
+            output_names=self.output_names, batch_size=self.batch_size,
+            seed=seed, max_parallel_batches=self.max_parallel_batches,
+            device=self.device)
+
+    def _extract_population(self):
+        sample = self._rejection.extract_result()
+        sample.method_name = "Rejection within SMC-ABC"
+        theta, w, cov = self._weigh_population(sample)
+        sample.means = theta
+        sample.weights = w
+        sample.meta["cov"] = cov
+        return sample
+
+    def _weigh_population(self, pop):
+        """Importance weights, parameter matrix and perturbation covariance
+        for an accepted population.
+
+        Draws came from the round's Gaussian-mixture proposal q over the
+        previous population (round 0: the prior itself), so ``w =
+        prior(theta) / q(theta)``, both log-densities taken in float32 on
+        the device; the next round perturbs with the component-wise kernel
+        ``cov = 2 Var_w(theta)`` (Beaumont et al. 2009).  Every proposal
+        passed the prior-support check of :meth:`GMDistribution.rvs`, which
+        raises rather than let an out-of-support draw through."""
+        theta = batch_to_arr2d(pop.outputs, self.parameter_names)
+        if self._proposal is None:
+            w = np.ones(pop.n_samples)
+        else:
+            x = torch.as_tensor(theta, device=self.device)
+            log_w = (self._prior_logpdf(x)
+                     - GMDistribution.logpdf(x, self._proposal)).cpu().numpy()
+            w = np.exp(log_w)
+        if not np.any(w > 0):
+            raise RuntimeError(
+                "Every importance weight is zero — with a bounded-support "
+                "prior this usually means the population is too small.")
+        cov = 2.0 * np.diag(weighted_var(theta, w))
+        if not np.all(np.isfinite(cov)):
+            cov = np.eye(theta.shape[1])
+        return theta.copy(), w, cov
+
+    def _update_objective(self):
+        done = sum(pop.meta["n_batches"] for pop in self._populations)
+        self.objective["n_batches"] = done + \
+            self._rejection.objective["n_batches"]
+
+    @property
+    def _gm_params(self):
+        sample = self._populations[-1]
+        return sample.means, sample.meta["cov"], sample.weights
+
+    @property
+    def current_population_threshold(self):
+        return self.schedule.thresholds[self.state["round"]]
+
+    def _extract_result_kwargs(self):
+        kwargs = super()._extract_result_kwargs()
+        kwargs.pop("threshold", None)
+        return kwargs
+
+
+class AdaptiveDistanceSMC(SMC):
+    """SMC-ABC with adaptive distance (Prangle 2017 Algorithm 5; reference
+    ``samplers.py:562-659``)."""
+
+    def __init__(self, model, discrepancy_name=None, output_names=None,
+                 **kwargs):
+        model, discrepancy_name = self._resolve_model(model, discrepancy_name)
+        if not isinstance(model[discrepancy_name], AdaptiveDistance):
+            raise TypeError("This method requires an adaptive distance node")
+        model[discrepancy_name].init_state()
+        sums = [s.name for s in model[discrepancy_name].parents]
+        if output_names is None:
+            output_names = sums
+        else:
+            output_names = output_names + [k for k in sums
+                                           if k not in output_names]
+        super().__init__(model, discrepancy_name, output_names=output_names,
+                         **kwargs)
+
+    _fused_capable = False  # per-batch Welford scale updates are host-side
+
+    def sample(self, n_samples, rounds, quantile=0.5, bar=True, **kwargs):
+        return Sampler.sample(self, n_samples, rounds=rounds,
+                              quantile=quantile, bar=bar, **kwargs)
+
+    def set_objective(self, n_samples, rounds, quantile=0.5):
+        super().set_objective(ceil(n_samples / quantile),
+                              quantiles=[1] * rounds)
+        self.population_size = n_samples
+        self.quantile = quantile
+
+    def _extract_population(self):
+        rejection_sample = self._rejection.extract_result()
+        outputs = {k: rejection_sample.outputs[k][:self.population_size]
+                   for k in self.output_names}
+        meta = dict(rejection_sample.meta)
+        node = self.model[self.discrepancy_name]
+        meta["adaptive_distance_w"] = node.adaptive_state["w"][-1]
+        d = outputs[self.discrepancy_name]
+        meta["threshold"] = float(np.max(d if d.ndim == 1 else d[:, -1]))
+        meta["accept_rate"] = self.population_size / meta["n_sim"]
+        sample = Sample("Rejection within adaptive distance SMC-ABC",
+                        outputs, self.parameter_names,
+                        discrepancy_name=self.discrepancy_name, **meta)
+        theta, w, cov = self._weigh_population(sample)
+        sample.means = theta
+        sample.weights = w
+        sample.meta["cov"] = cov
+        return sample
+
+    def _extract_result_kwargs(self):
+        kwargs = super()._extract_result_kwargs()
+        kwargs["adaptive_distance_w"] = [pop.meta["adaptive_distance_w"]
+                                         for pop in self._populations]
+        return kwargs
+
+    def _quantile_threshold(self, r, q):
+        # the distance functions change every round, so the next round's
+        # bound is the previous population's max distance, not a quantile
+        return self._populations[r - 1].meta["threshold"]
+
+    @property
+    def current_population_threshold(self):
+        """Vector threshold: one bound per accumulated distance function."""
+        return np.asarray(
+            [np.inf] + [pop.meta["threshold"] for pop in self._populations],
+            dtype=np.float32)
+
+
+class AdaptiveThresholdSMC(SMC):
+    """ABC-SMC with adaptive threshold selection via density-ratio
+    estimation (Simola et al. 2021; reference ``samplers.py:662-841``).
+    The density-ratio fit runs on the sampler's device: the default
+    estimator is made there, and a given one must be on it."""
+
+    def __init__(self, model, discrepancy_name=None, output_names=None,
+                 initial_quantile=0.20, q_threshold=0.99,
+                 densratio_estimation=None, **kwargs):
+        super().__init__(model, discrepancy_name,
+                         output_names=output_names, **kwargs)
+        self.q_threshold = q_threshold
+        self.initial_quantile = initial_quantile
+        from .density_ratio_estimation import DensityRatioEstimation
+        if densratio_estimation is None:
+            densratio_estimation = DensityRatioEstimation(
+                n=100, epsilon=0.001, max_iter=200, abs_tol=0.01, fold=5,
+                optimize=False, device=self.device)
+        elif densratio_estimation.device != self.device:
+            raise ValueError(
+                f"densratio_estimation is on {densratio_estimation.device}, "
+                f"the sampler on {self.device}: give the estimator "
+                f"device={self.device!r}")
+        self.densratio = densratio_estimation
+
+    def sample(self, n_samples, max_iter=10, fused=None, bar=True, **kwargs):
+        """Sample with adaptive threshold selection.  Rounds run fused on
+        the device by default (eligibility as for :meth:`SMC.sample`); the
+        density-ratio quantile selection happens between rounds."""
+        self.bar = bar
+        fused, prog = self._resolve_fused(fused, kwargs)
+        if not fused:
+            return Sampler.sample(self, n_samples, max_iter=max_iter,
+                                  bar=bar, **kwargs)
+        return self._sample_fused(n_samples, dict(max_iter=max_iter), prog)
+
+    def _fused_advance_round(self):
+        """Mirrors the unfused ``update``: fit the density ratio, stop when
+        the next quantile exceeds ``q_threshold`` or rounds run out."""
+        self._new_population = self._extract_population()
+        if self.state["round"] >= self.objective["round"]:
+            return False
+        if self._set_adaptive_quantile() >= self.q_threshold:
+            return False
+        self._populations.append(self._new_population)
+        self.state["round"] += 1
+        self._begin_round()
+        return True
+
+    def set_objective(self, n_samples, max_iter=10):
+        self.state["round"] = len(self._populations)
+        # quantile slots beyond round 0 stay empty until the density-ratio
+        # fit fills them between rounds
+        self.schedule.extend(max_iter,
+                             quantiles=[self.initial_quantile]
+                             + [None] * (max_iter - 1))
+        self.objective.update(dict(n_samples=n_samples,
+                                   n_batches=self.max_parallel_batches,
+                                   round=self.schedule.n_rounds - 1))
+        self._begin_round()
+        self._update_objective()
+
+    def update(self, batch, batch_index):
+        Sampler.update(self, batch, batch_index)
+        self._rejection.update(batch, batch_index)
+        if self._rejection.finished:
+            self.batches.cancel_pending()
+            self._new_population = self._extract_population()
+            if self.state["round"] < self.objective["round"] and \
+                    self._set_adaptive_quantile() < self.q_threshold:
+                self._populations.append(self._new_population)
+                self.state["round"] += 1
+                self._begin_round()
+        self._update_objective()
+
+    def _set_adaptive_quantile(self):
+        """Fill the NEXT round's quantile slot with
+        ``max(1 / max-density-ratio, 0.05)`` and return it (reference
+        ``samplers.py:791-813``)."""
+        from .density_ratio_estimation import calculate_densratio_basis_sigma
+        cur = self._resolve_sample(0)
+        prev = self._resolve_sample(-1)
+        if self.densratio.optimize:
+            sigma = list(10.0 ** np.arange(-1, 6))
+        else:
+            sigma = calculate_densratio_basis_sigma(cur["sigma_max"],
+                                                    prev["sigma_max"])
+        self.densratio.fit(x=cur["samples"], y=prev["samples"],
+                           weights_x=cur["weights"], weights_y=prev["weights"],
+                           sigma=sigma)
+        max_value = max(self.densratio.max_ratio(), 1.0)
+        q = max(1 / max_value, 0.05)
+        self.schedule.quantiles[self.state["round"] + 1] = q
+        return q
+
+    def _resolve_sample(self, backwards_index):
+        if self.state["round"] + backwards_index < 0:
+            return self._densityratio_initial_sample()
+        sample = self._new_population if backwards_index == 0 \
+            else self._populations[backwards_index]
+        weights = sample.weights
+        samples = sample.samples_array
+        sigma_max = float(np.min(np.sqrt(np.diag(sample.meta["cov"]))))
+        return dict(samples=samples, weights=weights, sigma_max=sigma_max)
+
+    def _densityratio_initial_sample(self):
+        n_samples = self._new_population.weights.shape[0]
+        samples = self._prior.rvs(
+            size=n_samples, seed=fold_in(self._round_seed, _PROPOSAL_SALT))
+        weights = np.ones(n_samples)
+        cov = np.atleast_2d(np.cov(samples.reshape(n_samples, -1),
+                                   rowvar=False))
+        return dict(samples=samples, weights=weights,
+                    sigma_max=float(np.min(np.sqrt(np.diag(cov)))))

@@ -82,20 +82,24 @@ def test_node_uid_equals_jax():
 def test_flat_namespace_is_the_slice():
     names = {"Model", "Prior", "Simulator", "Summary", "Distance",
              "AdaptiveDistance", "Operation", "Constant", "Distribution", "Rejection", "Sample",
-             "NativeBackend", "get_client", "set_client", "reset_client"}
+             "NativeBackend", "get_client", "set_client", "reset_client",
+             "SMC", "AdaptiveDistanceSMC", "AdaptiveThresholdSMC",
+             "SmcSample", "ModelPrior"}
     public = {n for n in dir(et) if not n.startswith("_")}
     assert names <= public
     for name in names:
         assert getattr(et, name) is not None
     # no visualization, pools or other methods yet
-    assert not public & {"SMC", "BOLFI", "OutputPool", "plot_discrepancy"}
+    assert not public & {"BOLFI", "OutputPool", "plot_discrepancy"}
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, elfi_tpu_torch, elfi_tpu_torch.models.ma2, "
             "elfi_tpu_torch.models.ma2_kernel, elfi_tpu_torch.interop, "
             "elfi_tpu_torch.models.gnk, elfi_tpu_torch.models.gnk_kernel, "
-            "elfi_tpu_torch.models.bignk; "
+            "elfi_tpu_torch.models.bignk, elfi_tpu_torch.models.gauss, "
+            "elfi_tpu_torch.model.extensions, "
+            "elfi_tpu_torch.methods.density_ratio_estimation; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'elfi_tpu.', 'jaxlib')) or "
             "m == 'elfi_tpu']; print(bad); sys.exit(1 if bad else 0)")
