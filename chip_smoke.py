@@ -59,6 +59,14 @@ Phases, each of which raises on failure (exit code != 0):
 13. Profile a few batches of each rejection graph and the whole gauss2d SMC
    run: device busy share of the wall time and the time by kernel (the top
    five printed, the table written).
+14. The default device: ``Rejection(m["d"], batch_size=2**21,
+   seed=1).sample(1000, n_sim=8 * 2**21)`` on the MA2 kernel graph with no
+   ``device=`` anywhere and no backend set must run on cuda:0 through K1.
+
+Phase 2 also reads ``ptxas -v`` for every kernel instance and fails on a
+spill store, a spill load or a stack frame.  Each kernel's ``bound_ms`` is
+the least time the card could take for its work at 2**21 simulations (see
+``bound_ms`` below).
 
 The last two lines are a JSON object describing each kernel and a JSON
 object ``{"ok": true, "device": {...}}``.
@@ -68,6 +76,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -115,6 +124,25 @@ GAUSS_N = 2000
 GAUSS_THRESHOLDS = [2.0, 1.0, 0.5, 0.3]
 SMC_BATCH = 2000
 
+# The card's rates for a kernel's bound, H100 SXM at its 1.98 GHz boost clock
+# over 132 SMs: HBM bytes per second; thread operations per second through
+# the issue slots (128 lanes per SM per clock, the lanes of the 67 TFLOP/s
+# FP32 figure); and through the special-function units, which also convert
+# to and from 64-bit types (16 per SM per clock).
+HBM_BYTES_S = 3.35e12
+ISSUE_OPS_S = 128 * 132 * 1.98e9
+XU_OPS_S = 16 * 132 * 1.98e9
+# Operations per piece of work, from the kernels' SASS (PERF.md, Findings):
+# (all, of them on the special-function units).  A Philox4x32-10 call is 10
+# rounds of two IMAD.WIDE.U32 and two three-way LOP3; a Box-Muller pair
+# (box_muller_fast) two LOP3 and eight FP32 operations around MUFU.LG2,
+# SQRT, SIN and COS; a g-and-k value two accurate expf (8 each), a log1pf
+# (21), the IEEE divide's fast path (7), a copysign and twelve products and
+# sums, without the branches around the slow paths.
+PHILOX_CALL_OPS = (40, 0)
+BOX_MULLER_OPS = (14, 4)
+GNK_TRANSFORM_OPS = (57, 4)
+
 
 def log(*args):
     print(*args, flush=True)
@@ -148,6 +176,65 @@ def time_ms(fn, warmup=3, reps=25):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def ptxas_entries(build_log):
+    """(function, registers, spill stores, spill loads, stack frame bytes)
+    for every kernel in an ``nvcc -Xptxas=-v`` log."""
+    out, name, frame = [], None, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and frame:
+            out.append((name, int(m.group(1)), frame[1], frame[2], frame[0]))
+            name = frame = None
+    return out
+
+
+def bound_ms(ops_per_sim, bytes_per_sim, sims):
+    """The least time the card could take for ``sims`` simulations that
+    each need ``ops_per_sim`` = (all operations, special-function ones) and
+    move ``bytes_per_sim``: the larger of the bytes over HBM's rate and the
+    operations over their pipes' rates; (ms, what bounds it)."""
+    t_bytes = bytes_per_sim * sims / HBM_BYTES_S
+    t_ops = max(ops_per_sim[0] * sims / ISSUE_OPS_S,
+                ops_per_sim[1] * sims / XU_OPS_S)
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes > t_ops else "operations"
+
+
+def k1_ops(n_obs):
+    """K1's operations per simulation: Philox calls and Box-Muller pairs for
+    n_obs + 2 normals, the filter (two products, two sums a value), the lag
+    products (a product and a sum each) and their float32 blocks of 8
+    (a conversion and a double sum each)."""
+    n_w = n_obs + 2
+    calls, pairs = math.ceil(n_w / 4), math.ceil(n_w / 2)
+    blocks = math.ceil((n_obs - 1) / 8) + math.ceil((n_obs - 2) / 8)
+    return (calls * PHILOX_CALL_OPS[0] + pairs * BOX_MULLER_OPS[0]
+            + 4 * n_obs + 2 * (2 * n_obs - 3) + 2 * blocks,
+            pairs * BOX_MULLER_OPS[1] + blocks)
+
+
+def k2_ops(n_obs):
+    """K2's operations per simulation: Philox calls and Box-Muller pairs for
+    n_obs normals, n_obs transforms, the pruned network for n_obs rows (two
+    min/max a comparator), the differences (three a row) and their float32
+    blocks of 8."""
+    from elfi_tpu_torch.ops.kernels.sort_network import network
+    calls, pairs = math.ceil(n_obs / 4), math.ceil(n_obs / 2)
+    blocks = math.ceil(n_obs / 8)
+    return (calls * PHILOX_CALL_OPS[0] + pairs * BOX_MULLER_OPS[0]
+            + n_obs * GNK_TRANSFORM_OPS[0] + 2 * len(network(n_obs))
+            + 3 * n_obs + 2 * blocks,
+            pairs * BOX_MULLER_OPS[1] + n_obs * GNK_TRANSFORM_OPS[1]
+            + blocks)
 
 
 def observed_autocovs(device):
@@ -191,9 +278,23 @@ def phase_kernel_checks(device):
     from elfi_tpu_torch.ops import topk
     from elfi_tpu_torch.ops.kernels.ma2 import (ma2_distance,
                                                 ma2_distance_noise,
-                                                ma2_distance_reference)
+                                                ma2_distance_reference,
+                                                philox_normals)
     obs = observed_autocovs(device)
     result = {}
+
+    # the kernels' own normals (Philox, box_muller_fast) against torch.randn
+    g = torch.Generator(device=device)
+    z = philox_normals(2**16, N_OBS + 2, g.manual_seed(9))
+    r = torch.randn(z.shape, generator=g.manual_seed(10), device=device)
+    stats = [float(x) for x in (z.mean(), r.mean(), z.std(), r.std())]
+    log(f"normals of box_muller_fast {tuple(z.shape)}: mean {stats[0]!r} "
+        f"(randn {stats[1]!r}), std {stats[2]!r} (randn {stats[3]!r}) "
+        f"(tolerance 0.02)")
+    check(bool(torch.isfinite(z).all()), "box_muller_fast: not finite")
+    check(abs(stats[0] - stats[1]) < 0.02 and abs(stats[2] - stats[3])
+          < 0.02, "box_muller_fast disagrees with torch.randn")
+    del z, r
 
     # the same noise in both: the kernel's arithmetic, exactly; at the
     # rejection batches on prior draws, and at the SMC batch (not a
@@ -372,7 +473,8 @@ def gnk_prior_params(batch, device, seed):
 def phase_gnk_kernel_checks(device):
     """K2 against its plain version on the card, and the times per call."""
     from elfi_tpu_torch.ops import topk
-    from elfi_tpu_torch.ops.kernels.gnk import (MAX_N_OBS, gnk_distance,
+    from elfi_tpu_torch.ops.kernels.gnk import (MAX_N_OBS, NETWORK_ROWS,
+                                                gnk_distance,
                                                 gnk_distance_noise,
                                                 gnk_distance_reference,
                                                 gnk_sort_rows)
@@ -403,15 +505,17 @@ def phase_gnk_kernel_checks(device):
             result["max_rel_err"] = max(result["max_rel_err"], max_rel)
             del z
 
-    # the sorting network alone against torch.sort, +inf pads and ties
-    y = torch.randn((2**20, MAX_N_OBS), generator=gen(12), device=device)
-    y[::2, GNK_N_OBS:] = math.inf
-    y[1::4, 40:] = y[1::4, :1]
-    check(torch.equal(gnk_sort_rows(y), torch.sort(y, dim=1).values),
-          "K2's sorting network differs from torch.sort")
-    log(f"K2 sort network == torch.sort on {y.shape[0]} rows of "
-        f"{MAX_N_OBS}, +inf pads and ties included")
-    del y
+    # each instance's sorting network alone against torch.sort, +inf pads
+    # and ties
+    for rows in NETWORK_ROWS:
+        y = torch.randn((2**20, rows), generator=gen(12), device=device)
+        y[::2, 17:] = math.inf
+        y[1::4, 40:] = y[1::4, :1]
+        check(torch.equal(gnk_sort_rows(y), torch.sort(y, dim=1).values),
+              f"K2's {rows}-row sorting network differs from torch.sort")
+        log(f"K2 sort network == torch.sort on {y.shape[0]} rows of "
+            f"{rows}, +inf pads and ties included")
+        del y
 
     # the kernel's own Philox stream against torch.randn: statistics
     batch = 2**20
@@ -722,6 +826,32 @@ def phase_adaptive_smc(device):
     return out
 
 
+def phase_default_device():
+    """The MA2 kernel graph with no ``device=`` anywhere and no backend set:
+    the port's default, the current CUDA device, through K1."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import ma2_kernel
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    et.reset_client()
+    m = ma2_kernel.get_model(seed_obs=SEED_OBS)
+    rej = et.Rejection(m["d"], batch_size=KERNEL_BATCH, seed=1)
+    ma2_distance.launches = 0
+    res = rej.sample(1000, n_sim=8 * KERNEL_BATCH, bar=False)
+    torch.cuda.synchronize()
+    launches = ma2_distance.launches
+    where = {rej.device, *(v.device for v in rej.state["samples"].values())}
+    log(f"default device: Rejection without device= ran on "
+        f"{sorted(map(str, where))}; ma2_distance launches {launches} "
+        f"(expected 8)")
+    check(where == {torch.device("cuda", 0)},
+          f"the default device run was on {where}, not cuda:0")
+    check(launches == 8, f"K1 launched {launches} times, expected 8")
+    check(res.samples["t1"].shape == (1000,)
+          and bool(np.all(np.isfinite(res.samples_array))),
+          "the default device run gave bad samples")
+    return dict(launches=launches, device=str(rej.device))
+
+
 def device_table(prof):
     """(events, device microseconds) of a profile: kernels and memsets
     only, since an operator's own device time repeats its kernels'."""
@@ -823,9 +953,19 @@ def main():
             built.result()
     log(f"built K1 and K2 in {time.perf_counter() - t0!r} s (one nvcc "
         f"each, in parallel)")
+    ptxas = {}
     for lib in ("ma2_distance", "gnk_distance"):
         log(f"nvcc {lib}: {_build.build_log[lib]['seconds']!r} s")
         log(_build.build_log[lib]["log"].strip())
+        ptxas[lib] = ptxas_entries(_build.build_log[lib]["log"])
+        check(len(ptxas[lib]) > 0, f"no ptxas -v lines for {lib}")
+        for name, regs, stores, loads, frame in ptxas[lib]:
+            check(stores == loads == frame == 0, f"{name}: {stores} bytes "
+                  f"of spill stores, {loads} of spill loads, {frame} of "
+                  "stack frame")
+        log(f"ptxas {lib}: " + "; ".join(
+            f"{name} {regs} registers" for name, regs, *_ in ptxas[lib])
+            + "; no spills, no stack frame")
 
     k1_checks = phase_kernel_checks(device)
     phase_fused_equals_batchwise(device)
@@ -838,6 +978,7 @@ def main():
     main_path.update(phase_ma2_smc(device))
     adaptive.update(phase_adaptive_smc(device))
     phase_profile(device, main_path)
+    default_device = phase_default_device()
 
     log(json.dumps({"main_path": main_path,
                     "merge_ms": {**{k: v for k, v in k1_checks.items()
@@ -847,6 +988,8 @@ def main():
                     "card": card}))
     k1_launches = (main_path["kernel graph"]["launches"]
                    + main_path["ma2 smc kernel graph"]["launches"])
+    k1_bound, k1_by = bound_ms(k1_ops(N_OBS), 12, KERNEL_BATCH)
+    k2_bound, k2_by = bound_ms(k2_ops(GNK_N_OBS), 20, GNK_BATCH)
     log(json.dumps({"kernels": [{
         "name": "ma2_distance",
         "route": "cuda",
@@ -857,10 +1000,18 @@ def main():
             "ma2 rejection kernel graph":
                 main_path["kernel graph"]["launches"],
             "ma2 smc kernel graph":
-                main_path["ma2 smc kernel graph"]["launches"]},
+                main_path["ma2 smc kernel graph"]["launches"],
+            "ma2 rejection, no device given": default_device["launches"]},
         "max_abs_err": k1_checks["max_abs_err"],
+        "max_rel_err": k1_checks["max_rel_err"],
         "ms": k1_checks["ms"],
         "plain_ms": k1_checks["plain_ms"],
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "bound_share": k1_bound / k1_checks["ms"],
+        "ops_per_sim": k1_ops(N_OBS),
+        "library_ms": None,
+        "ptxas": ptxas["ma2_distance"],
     }, {
         "name": "gnk_distance",
         "route": "cuda",
@@ -868,8 +1019,15 @@ def main():
         "replaces": "elfi_tpu/ops/pallas_kernels.py:157",
         "launches": main_path["gnk kernel graph"]["launches"],
         "max_abs_err": k2_checks["max_abs_err"],
+        "max_rel_err": k2_checks["max_rel_err"],
         "ms": k2_checks["ms"],
         "plain_ms": k2_checks["plain_ms"],
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "bound_share": k2_bound / k2_checks["ms"],
+        "ops_per_sim": k2_ops(GNK_N_OBS),
+        "library_ms": None,
+        "ptxas": ptxas["gnk_distance"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,6 @@ asynchronous launch, so calling ``fn`` does not wait for the device.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..model.model import node_uid
 from ..utils import to_tensor
@@ -40,12 +39,19 @@ def _adaptive_versions(model):
         for n, st in model.dag.nodes.items() if st.get("adaptive")))
 
 
-def compile_program(model, outputs, override_names=(), device="cpu"):
+def _resolve_device(device):
+    # imported here: the parallel package imports this module
+    from ..parallel.backends import resolve_device
+    return resolve_device(device)
+
+
+def compile_program(model, outputs, override_names=(), device=None):
     """Return a (cached) :class:`CompiledProgram` for ``outputs`` of
-    ``model`` on ``device`` with the given set of overridable node names."""
+    ``model`` on ``device`` (None: the global backend's) with the given set
+    of overridable node names."""
     outputs = tuple(outputs)
     override_names = tuple(sorted(override_names))
-    device = torch.device(device)
+    device = _resolve_device(device)
     cache = model.__dict__.setdefault("_program_cache", {})
     key = (model.revision, outputs, override_names, str(device),
            _adaptive_versions(model))
@@ -61,11 +67,11 @@ def compile_program(model, outputs, override_names=(), device="cpu"):
 
 
 class CompiledProgram:
-    def __init__(self, model, outputs, override_names=(), device="cpu"):
+    def __init__(self, model, outputs, override_names=(), device=None):
         self.model = model
         self.outputs = tuple(outputs)
         self.override_names = frozenset(override_names)
-        self.device = torch.device(device)
+        self.device = _resolve_device(device)
         for o in self.outputs:
             if o not in model.dag:
                 raise ValueError(f"Unknown output node {o!r}")

@@ -10,142 +10,153 @@
 // writes the euclidean distance between them and the sorted observed sample.
 //
 // What bounds it on this card: each simulation reads 16 bytes (A, B, g, k)
-// and writes 4, but computes n_obs normals (Philox + Box-Muller), two expf
-// and a log1pf per value, and a 64-input sorting network of 672
-// compare-exchanges.  That is thousands of instructions per 20 bytes: the
-// kernel is bound by the FP32 pipes and the special-function units, never
-// by HBM bandwidth.
+// and writes 4 (42 MB, 12.5 us at 2^21 simulations), but at n_obs 50 it
+// needs about 4,700 operations: 13 Philox4x32-10 calls and 25 Box-Muller
+// pairs (philox.cuh), the transform (two expf, a log1pf and an IEEE
+// divide, 57 a value in the SASS without the branches around their slow
+// paths), 403 compare-exchanges (two FMNMX each, on the 64-lane pipe) and
+// the distance: 0.294 ms at 2^21 at the issue rate (128 lanes per SM per
+// clock); HBM would need 0.013.  The n_obs-50 instance compiles to 6,159
+// SASS instructions, fully unrolled.
 //
-// What the design does about it: the TPU kernel laid out a (64 rows x 2048
-// lanes) block in VMEM and sorted over sublanes.  Here ONE THREAD CARRIES
-// ONE SIMULATION: its 64 values live in a float[64] in registers, rows at
-// or past n_obs hold +inf (so they sort to the end), and a bitonic network
-// whose indices are all compile-time constants sorts them in place.  Every
-// loop over the array is fully unrolled, which is what keeps it out of
-// local memory (ptxas -v reports the spills).  Nothing touches shared or
-// device memory between the parameter loads and the distance store.
+// What the design does about it: ONE THREAD CARRIES ONE SIMULATION, its
+// rows in a float[kRows] in registers; nothing touches device memory
+// between the parameter loads and the distance store.
+// - The network is Batcher's odd-even merge sort, generated as straight
+//   code (sort_network.cuh) per instance: kRows = 50 for the main path's
+//   n_obs, pruned to the 403 comparators whose rows are all real, and
+//   kRows = 64 for any other n_obs <= 64, whose rows >= n_obs hold +inf
+//   (543 comparators).  Both sort exactly as torch.sort does.
+// - Each group of four rows is drawn (one Philox call, two Box-Muller
+//   pairs on the special-function units) and transformed straight into
+//   the network's registers.  __launch_bounds__ caps the registers at
+//   min_blocks blocks an SM: the 50-row instance needs 76 registers (6
+//   blocks, 24 warps); capped at 7 blocks it spilled and gained 1 %.
+// - The sorted observed sample is staged once per block in shared memory
+//   as float32; the squared differences are summed in float32 over blocks
+//   of kBlock rows, and only the block sums are converted to double.
+// - The transform keeps the accurate expf / log1pf and the IEEE divide,
+//   rounded op by op as the plain version rounds them; the sign of the
+//   tanh is a copysign, which gives the same value as sign(x) * q.  With
+//   __expf and __fdividef it ran 18 % faster but moved the distance by up
+//   to 2.1e-6 relative (PERF.md, Findings).
 //
 // RNG: philox.cuh, keyed by the node's 64-bit stream seed with counter
 // (simulation index, draw block), as in the MA2 kernel: ceil(n_obs / 2)
 // Box-Muller pairs, four normals per Philox call.
 //
-// Numerics: the transform rounds each product, sum and quotient separately
-// (no FMA contraction) with the accurate expf / log1pf, as the plain
-// version's elementwise ops do; the squared differences to the observed
-// sample are summed in double and rounded to float at the end, as the plain
-// version sums them.  The sort's fminf / fmaxf agree with the JAX network's
-// minimum / maximum on finite values and +inf.
+// Numerics: the order of gnk_distance_reference in ops/kernels/gnk.py.
+// The sort's fminf / fmaxf agree with the JAX network's minimum / maximum
+// on finite values and +inf.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "sort_network.cuh"
 
 namespace {
 
-using elfi::box_muller;
+using elfi::box_muller_fast;
 using elfi::philox_block;
+using elfi::PhiloxKey;
+using elfi::sort_network;
 
 constexpr int kThreads = 128;
-constexpr int kLogRows = 6;
-constexpr int kRows = 1 << kLogRows;   // order-statistic rows; n_obs <= kRows
+constexpr int kMaxRows = 64;   // n_obs <= kMaxRows
+constexpr int kMainRows = 50;  // the instance for n_obs == 50
+// Squared differences summed in float32 per block of rows; the plain
+// version (ops/kernels/_blocked.py, BLOCK) uses the same.
+constexpr int kBlock = 8;
 
-// The g-and-k quantile function at z, in the TPU kernel's form.
+// Blocks of kThreads that each instance asks ptxas to fit on an SM.
+constexpr int min_blocks(int rows) { return rows == kMainRows ? 6 : 5; }
+
+// The g-and-k quantile function at z, in the TPU kernel's form; h = g / 2.
 __device__ __forceinline__ float gnk_transform(float z, float A, float B,
-                                               float g, float k, float c) {
-  const float x = __fmul_rn(__fmul_rn(0.5f, g), z);
+                                               float h, float k, float c) {
+  const float x = __fmul_rn(h, z);
   const float e = expf(-2.0f * fabsf(x));
-  const float sgn = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-  const float t = __fdiv_rn(__fmul_rn(sgn, __fsub_rn(1.0f, e)),
-                            __fadd_rn(1.0f, e));
+  const float t = copysignf(__fdiv_rn(__fsub_rn(1.0f, e), __fadd_rn(1.0f, e)),
+                            x);
   const float p = expf(__fmul_rn(k, log1pf(__fmul_rn(z, z))));
   const float scale = __fmul_rn(B, __fadd_rn(1.0f, __fmul_rn(c, t)));
   return __fadd_rn(A, __fmul_rn(__fmul_rn(scale, p), z));
 }
 
-// Ascending bitonic sort of y in place.  All three loops have constant trip
-// counts and unroll completely, so every index is a compile-time constant
-// and y stays in registers.  Stage (k, j) compare-exchanges rows i and
-// i | j for every i with bit j clear, ascending iff (i & k) == 0: the JAX
-// network's order (a 2j-block at row r lies inside one k-aligned segment).
-__device__ __forceinline__ void bitonic_sort(float (&y)[kRows]) {
-#pragma unroll
-  for (int ks = 1; ks <= kLogRows; ++ks) {
-#pragma unroll
-    for (int js = ks - 1; js >= 0; --js) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int j = 1 << js;
-        if ((i & j) == 0) {
-          const int l = i | j;
-          const float lo = fminf(y[i], y[l]);
-          const float hi = fmaxf(y[i], y[l]);
-          const bool up = (i & (1 << ks)) == 0;
-          y[i] = up ? lo : hi;
-          y[l] = up ? hi : lo;
-        }
-      }
-    }
-  }
-}
-
-// Euclidean distance between the first n_obs sorted rows and obs, summed in
-// double.
+// Euclidean distance between the first n rows of y and the observed sample
+// in shared memory: float32 blocks of kBlock rows, added in double.
+template <int kRows>
 __device__ __forceinline__ float sorted_distance(const float (&y)[kRows],
-                                                 const float* __restrict__ obs,
-                                                 int n_obs) {
+                                                 const float* s_obs, int n) {
   double s = 0.0;
+  float acc = 0.f;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    if (r < n_obs) {
-      const double d = __dsub_rn(static_cast<double>(y[r]),
-                                 static_cast<double>(obs[r]));
-      s = __dadd_rn(s, __dmul_rn(d, d));
+    if (r < n) {
+      const float d = __fsub_rn(y[r], s_obs[r]);
+      acc = __fadd_rn(acc, __fmul_rn(d, d));
+    }
+    if (r % kBlock == kBlock - 1 || r == kRows - 1) {
+      s = __dadd_rn(s, static_cast<double>(acc));
+      acc = 0.f;
     }
   }
   return static_cast<float>(sqrt(s));
 }
 
-template <bool kNoiseIn>
-__global__ void __launch_bounds__(kThreads)
+template <int kRows, bool kNoiseIn>
+__global__ void __launch_bounds__(kThreads, min_blocks(kRows))
 gnk_distance_kernel(const float* __restrict__ A, const float* __restrict__ B,
                     const float* __restrict__ g, const float* __restrict__ k,
                     const float* __restrict__ obs,
                     const float* __restrict__ noise, float* __restrict__ out,
-                    int64_t batch, int n_obs, float c, uint64_t seed) {
+                    int64_t batch, int n_obs, float c,
+                    const __grid_constant__ PhiloxKey key) {
+  __shared__ __align__(16) float s_obs[kRows];
+  // the main instance's n_obs is a constant, so its guards fold away
+  const int n = kRows == kMaxRows ? n_obs : kRows;
+  for (int r = threadIdx.x; r < kRows; r += kThreads)
+    s_obs[r] = r < n ? obs[r] : 0.f;
+  __syncthreads();
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= batch) return;
-  const float a = A[i], b = B[i], gg = g[i], kk = k[i];
+  const float a = A[i], b = B[i], h = 0.5f * g[i], kk = k[i];
   float y[kRows];
   if constexpr (kNoiseIn) {
-    const float* z = noise + i * n_obs;
+    const float* z = noise + i * n;
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
-      y[r] = r < n_obs ? gnk_transform(z[r], a, b, gg, kk, c) : INFINITY;
+      y[r] = r < n ? gnk_transform(z[r], a, b, h, kk, c) : INFINITY;
   } else {
 #pragma unroll
-    for (int q = 0; q < kRows / 4; ++q) {
+    for (int q = 0; q < (kRows + 3) / 4; ++q) {
       const int r = 4 * q;
-      y[r] = y[r + 1] = y[r + 2] = y[r + 3] = INFINITY;
-      if (r < n_obs) {
-        const uint4 w = philox_block(seed, i, static_cast<uint32_t>(q));
-        const float2 z0 = box_muller(w.x, w.y);
-        y[r] = gnk_transform(z0.x, a, b, gg, kk, c);
-        if (r + 1 < n_obs) y[r + 1] = gnk_transform(z0.y, a, b, gg, kk, c);
-        if (r + 2 < n_obs) {
-          const float2 z1 = box_muller(w.z, w.w);
-          y[r + 2] = gnk_transform(z1.x, a, b, gg, kk, c);
-          if (r + 3 < n_obs) y[r + 3] = gnk_transform(z1.y, a, b, gg, kk, c);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (r + t < kRows) y[r + t] = INFINITY;
+      if (r < n) {
+        const uint4 w = philox_block(key, i, static_cast<uint32_t>(q));
+        const float2 z0 = box_muller_fast(w.x, w.y);
+        y[r] = gnk_transform(z0.x, a, b, h, kk, c);
+        if (r + 1 < kRows && r + 1 < n)
+          y[r + 1] = gnk_transform(z0.y, a, b, h, kk, c);
+        if (r + 2 < kRows && r + 2 < n) {
+          const float2 z1 = box_muller_fast(w.z, w.w);
+          y[r + 2] = gnk_transform(z1.x, a, b, h, kk, c);
+          if (r + 3 < kRows && r + 3 < n)
+            y[r + 3] = gnk_transform(z1.y, a, b, h, kk, c);
         }
       }
     }
   }
-  bitonic_sort(y);
-  out[i] = sorted_distance(y, obs, n_obs);
+  sort_network<kRows>(y);
+  out[i] = sorted_distance<kRows>(y, s_obs, n);
 }
 
 // The network alone on given rows, for exact comparison with torch.sort.
+template <int kRows>
 __global__ void __launch_bounds__(kThreads)
 gnk_sort_rows_kernel(const float* __restrict__ in, float* __restrict__ out,
                      int64_t batch) {
@@ -154,7 +165,7 @@ gnk_sort_rows_kernel(const float* __restrict__ in, float* __restrict__ out,
   float y[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) y[r] = in[i * kRows + r];
-  bitonic_sort(y);
+  sort_network<kRows>(y);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) out[i * kRows + r] = y[r];
 }
@@ -168,13 +179,20 @@ int launch(const float* A, const float* B, const float* g, const float* k,
            const float* obs, const float* noise, float* out, long long batch,
            int n_obs, float c, unsigned long long seed, int device,
            void* stream) {
-  if (batch < 1 || n_obs < 1 || n_obs > kRows)
+  if (batch < 1 || n_obs < 1 || n_obs > kMaxRows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gnk_distance_kernel<kNoiseIn>
-      <<<blocks_for(batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          A, B, g, k, obs, noise, out, batch, n_obs, c, seed);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const PhiloxKey key = elfi::philox_key(seed);
+  if (n_obs == kMainRows)
+    gnk_distance_kernel<kMainRows, kNoiseIn><<<blocks_for(batch), kThreads, 0,
+                                               s>>>(
+        A, B, g, k, obs, noise, out, batch, n_obs, c, key);
+  else
+    gnk_distance_kernel<kMaxRows, kNoiseIn><<<blocks_for(batch), kThreads, 0,
+                                              s>>>(
+        A, B, g, k, obs, noise, out, batch, n_obs, c, key);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,14 +221,21 @@ int elfi_gnk_distance_noise(const float* A, const float* B, const float* g,
                       device, stream);
 }
 
-// The sorting network on `in`, (batch, 64) row-major, into `out`.
+// The network of the `rows`-row instance (50 or 64) on `in`, (batch, rows)
+// row-major, into `out`.
 int elfi_gnk_sort_rows(const float* in, float* out, long long batch,
-                       int device, void* stream) {
-  if (batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+                       int rows, int device, void* stream) {
+  if (batch < 1 || (rows != kMainRows && rows != kMaxRows))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gnk_sort_rows_kernel<<<blocks_for(batch), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(in, out, batch);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (rows == kMainRows)
+    gnk_sort_rows_kernel<kMainRows><<<blocks_for(batch), kThreads, 0, s>>>(
+        in, out, batch);
+  else
+    gnk_sort_rows_kernel<kMaxRows><<<blocks_for(batch), kThreads, 0, s>>>(
+        in, out, batch);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,8 +24,9 @@ class ParameterInference:
     """Base inference loop.
 
     ``device`` is where every program of the inference runs; by default the
-    global backend's device (a CPU :class:`NativeBackend` unless one was
-    set).  A requested device is used as given, never replaced.
+    global backend's device (the current CUDA device unless a backend on
+    another device was set; without a CUDA device that raises).  A
+    requested device is used as given, never replaced.
     """
 
     def __init__(self, model, output_names, batch_size=1, seed=None,

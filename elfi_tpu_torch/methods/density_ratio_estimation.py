@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.backends import resolve_device
+
 __all__ = ["DensityRatioEstimation", "calculate_densratio_basis_sigma"]
 
 
@@ -55,12 +57,13 @@ def _kliep_solve(A, b, b_normalized, weights_x, A_self, epsilon, abs_tol,
 
 class DensityRatioEstimation:
     """RBF-basis density ratio estimator w(x) ~ p_x(x)/p_y(x), fitted on
-    ``device``.  An ``AdaptiveThresholdSMC`` makes its default estimator on
-    its own device and refuses one given on another."""
+    ``device`` (None: the global backend's).  An ``AdaptiveThresholdSMC``
+    makes its default estimator on its own device and refuses one given on
+    another."""
 
     def __init__(self, n=100, epsilon=0.1, max_iter=500, abs_tol=0.01,
                  conv_check_interval=20, fold=5, optimize=False,
-                 device="cpu"):
+                 device=None):
         self.n = n
         self.epsilon = epsilon
         self.max_iter = max_iter
@@ -69,7 +72,7 @@ class DensityRatioEstimation:
         self.fold = fold
         self.sigma = None
         self.optimize = optimize
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _t(self, a):
         """float64 numpy -> float32 tensor on the device (``jnp.asarray``

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..compile.compiler import compile_program
+from ..parallel.backends import resolve_device
 from ..ops.distributions import Distribution
 
 __all__ = ["ModelPrior", "ScipyLikeDistribution"]
@@ -24,16 +25,16 @@ ScipyLikeDistribution = Distribution
 
 class ModelPrior:
     """Joint prior distribution over a model's parameter nodes.  Densities
-    are evaluated in float32 on ``device``."""
+    are evaluated in float32 on ``device`` (None: the global backend's)."""
 
-    def __init__(self, model, parameter_names=None, device="cpu"):
+    def __init__(self, model, parameter_names=None, device=None):
         model = model.model if hasattr(model, "model") and not hasattr(
             model, "dag") else model
         self.model = model.copy()
         self.parameter_names = list(parameter_names
                                     or self.model.parameter_names)
         self.dim = len(self.parameter_names)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         dag = self.model.dag
         self._order = dag.topological_order(self.parameter_names)
         self._states = {n: dag.get_state(n) for n in self._order}

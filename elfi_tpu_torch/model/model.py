@@ -138,9 +138,9 @@ class Model:
 
     # -- execution ---------------------------------------------------------
     def generate(self, batch_size=1, outputs=None, with_values=None,
-                 seed=None, device="cpu"):
-        """Compute one batch on ``device``; returns a dict of numpy
-        arrays."""
+                 seed=None, device=None):
+        """Compute one batch on ``device`` (None: the global backend's);
+        returns a dict of numpy arrays."""
         from ..compile.compiler import compile_program
 
         if outputs is None:
@@ -219,7 +219,7 @@ class NodeReference:
         return [self.model[p] for p in self.model.dag.parents(self.name)]
 
     def generate(self, batch_size=1, with_values=None, seed=None,
-                 device="cpu"):
+                 device=None):
         out = self.model.generate(batch_size, outputs=[self.name],
                                   with_values=with_values, seed=seed,
                                   device=device)

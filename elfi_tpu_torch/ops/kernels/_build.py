@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: name -> {"seconds": build time (0.0 if loaded from an earlier build),
-#: "log": the compiler's output}, for the libraries this process loaded
+#: "log": the compiler's output, kept beside the library as ``.log``}, for
+#: the libraries this process loaded
 build_log = {}
 _loaded = {}
 
@@ -67,8 +68,11 @@ def load(name, sources):
     if name in _loaded:
         return _loaded[name]
     path = library_path(name, sources)
+    log_path = path.with_suffix(".log")
     if path.exists():
-        build_log[name] = {"seconds": 0.0, "log": "loaded an earlier build"}
+        log = log_path.read_text() if log_path.exists() else ""
+        build_log[name] = {"seconds": 0.0,
+                           "log": "loaded an earlier build\n" + log}
     else:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,6 +89,8 @@ def load(name, sources):
                 raise RuntimeError(
                     f"nvcc failed building {name} ({' '.join(cmd)}):\n"
                     f"{proc.stdout}{proc.stderr}")
+            # the compiler's report (ptxas -v) stays beside the library
+            log_path.write_text(proc.stdout + proc.stderr)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):

@@ -14,16 +14,20 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, sort_network
+from ._blocked import blocked_sum
 
 __all__ = ["gnk_distance", "gnk_distance_noise", "gnk_distance_reference",
-           "gnk_sort_rows", "gnk_transform", "MAX_N_OBS"]
+           "gnk_sort_rows", "gnk_transform", "MAX_N_OBS", "NETWORK_ROWS"]
 
 _LIB = "gnk_distance"
 _SOURCES = ("gnk_distance.cu",)
 _P = ctypes.c_void_p
-#: rows of the kernel's sorting network: n_obs may be 1 .. MAX_N_OBS
+#: rows of the kernel's general sorting network: n_obs may be 1 .. MAX_N_OBS
 MAX_N_OBS = 64
+#: the row counts of the kernel's instances: n_obs 50 has its own
+#: network, any other n_obs takes the 64-row one
+NETWORK_ROWS = sort_network.ROWS
 
 
 @functools.cache
@@ -39,7 +43,7 @@ def _lib():
         ctypes.c_float, ctypes.c_int, _P]
     lib.elfi_gnk_distance_noise.restype = ctypes.c_int
     lib.elfi_gnk_sort_rows.argtypes = [_P, _P, ctypes.c_longlong,
-                                       ctypes.c_int, _P]
+                                       ctypes.c_int, ctypes.c_int, _P]
     lib.elfi_gnk_sort_rows.restype = ctypes.c_int
     lib.elfi_cuda_error_string.argtypes = [ctypes.c_int]
     lib.elfi_cuda_error_string.restype = ctypes.c_char_p
@@ -89,18 +93,19 @@ def gnk_distance_reference(A, B, g, k, observed_sorted, n_obs=50, c=0.8,
     row and take the euclidean distance to ``observed_sorted`` -- the JAX
     package's ``GNK`` + ``ss_order`` + ``euclidean_multiss``.
 
-    The kernel pads rows ``>= n_obs`` with +inf before its 64-row sort;
-    sorting the ``n_obs`` values alone gives the same first ``n_obs``
-    rows.  The squared differences are summed in float64 and the distance
-    rounded to float32, as the kernel does: a float32 sum in another order
-    differs by some 1e-7 relative, and more where the distance is small.
+    The kernel's 64-row instance pads rows ``>= n_obs`` with +inf before
+    it sorts; sorting the ``n_obs`` values alone gives the same first
+    ``n_obs`` rows.  The differences and their squares are float32, summed
+    in the kernel's order (:func:`._blocked.blocked_sum`: float32 blocks of
+    8 rows, added in float64), and the distance is rounded to float32, as
+    the kernel does.
     """
     if z is None:
         z = torch.randn((batch_size, n_obs), generator=generator,
                         device=A.device)
     ys = torch.sort(gnk_transform(z, A, B, g, k, c), dim=1).values
-    d = ys.double() - observed_sorted.double()
-    return torch.sqrt(torch.sum(d * d, dim=1)).float()
+    d = ys - observed_sorted
+    return torch.sqrt(blocked_sum(d * d)).float()
 
 
 def gnk_distance(A, B, g, k, observed_sorted, n_obs=50, c=0.8, batch_size=1,
@@ -164,21 +169,23 @@ gnk_distance_noise.launches = 0
 
 
 def gnk_sort_rows(y):
-    """The kernel's sorting network alone: each row of ``y`` (batch, 64)
-    float32 sorted ascending.  On the CPU it is ``torch.sort``, which the
-    network must equal exactly on the card, +inf pads included."""
+    """The kernel's sorting network alone: each row of ``y`` (batch, rows)
+    float32 sorted ascending by the instance of ``rows`` rows, one of
+    ``NETWORK_ROWS``.  On the CPU it is ``torch.sort``, which the network
+    must equal exactly on the card, +inf pads and ties included."""
     device = _device_of(y)
-    if y.ndim != 2:
-        raise ValueError(f"y must be (batch, {MAX_N_OBS}), got {tuple(y.shape)}")
-    batch = int(y.shape[0])
-    _build.check_tensor("y", y, (batch, MAX_N_OBS), device)
+    if y.ndim != 2 or int(y.shape[1]) not in NETWORK_ROWS:
+        raise ValueError(f"y must be (batch, rows) with rows in "
+                         f"{NETWORK_ROWS}, got {tuple(y.shape)}")
+    batch, rows = (int(s) for s in y.shape)
+    _build.check_tensor("y", y, (batch, rows), device)
     if batch < 1:
         raise ValueError("y must have at least one row")
     if device.type == "cpu":
         return torch.sort(y, dim=1).values
     lib = _lib()
     out = torch.empty_like(y)
-    rc = lib.elfi_gnk_sort_rows(y.data_ptr(), out.data_ptr(), batch,
+    rc = lib.elfi_gnk_sort_rows(y.data_ptr(), out.data_ptr(), batch, rows,
                                 device.index,
                                 torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on(rc, lib, "elfi_gnk_sort_rows")

@@ -15,8 +15,10 @@ import functools
 import torch
 
 from . import _build
+from ._blocked import blocked_sum
 
-__all__ = ["ma2_distance", "ma2_distance_noise", "ma2_distance_reference"]
+__all__ = ["ma2_distance", "ma2_distance_noise", "ma2_distance_reference",
+           "philox_normals"]
 
 _LIB = "ma2_distance"
 _SOURCES = ("ma2_distance.cu",)
@@ -35,6 +37,9 @@ def _lib():
         _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, _P]
     lib.elfi_ma2_distance_noise.restype = ctypes.c_int
+    lib.elfi_philox_normals.argtypes = [_P, ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_ulonglong, ctypes.c_int, _P]
+    lib.elfi_philox_normals.restype = ctypes.c_int
     lib.elfi_cuda_error_string.argtypes = [ctypes.c_int]
     lib.elfi_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -67,10 +72,12 @@ def ma2_distance_reference(t1, t2, obs, n_obs, batch_size, generator=None,
     the JAX package's ``MA2`` + ``autocov`` + euclidean.
 
     The series and the lag products are float32, rounded as the kernel
-    rounds them; the products are summed and the distance taken in float64,
-    as the kernel does.  A float32 mean summed in another order differs by
-    up to ~3e-4 relative where the distance is small, since ``d`` is then a
-    difference of nearly equal sums.
+    rounds them; the products are summed in the kernel's order
+    (:func:`._blocked.blocked_sum`: float32 blocks of 8, added in float64)
+    and the distance is taken in float64, as the kernel does.  A float32
+    mean summed in another order differs by up to ~3e-4 relative where the
+    distance is small, since ``d`` is then a difference of nearly equal
+    sums.
     """
     if noise is None:
         noise = torch.randn((batch_size, n_obs + 2), generator=generator,
@@ -78,8 +85,8 @@ def ma2_distance_reference(t1, t2, obs, n_obs, batch_size, generator=None,
     t1 = t1.reshape(-1, 1)
     t2 = t2.reshape(-1, 1)
     x = noise[:, 2:] + t1 * noise[:, 1:-1] + t2 * noise[:, :-2]
-    s1 = (x[:, 1:] * x[:, :-1]).double().mean(dim=1)
-    s2 = (x[:, 2:] * x[:, :-2]).double().mean(dim=1)
+    s1 = blocked_sum(x[:, 1:] * x[:, :-1]) / (n_obs - 1)
+    s2 = blocked_sum(x[:, 2:] * x[:, :-2]) / (n_obs - 2)
     obs = obs.double()
     d1 = s1 - obs[0]
     d2 = s2 - obs[1]
@@ -139,3 +146,30 @@ def ma2_distance_noise(t1, t2, observed_autocovs, noise):
 
 
 ma2_distance_noise.launches = 0
+
+
+def philox_normals(batch_size, n, generator):
+    """The normals the port's kernels draw (``csrc/philox.cuh``: Philox
+    and ``box_muller_fast``), to check their distribution: (batch_size, n)
+    float32 on ``generator``'s device, row i the first n normals of
+    simulation i's stream under ``generator.initial_seed()``.  On the CPU
+    it is ``torch.randn``, the distribution they must follow."""
+    for name, v, low in (("batch_size", batch_size, 1), ("n", n, 1)):
+        if not isinstance(v, int) or v < low:
+            raise ValueError(f"{name} must be an int >= {low}, got {v!r}")
+    device = generator.device
+    if device.type == "cpu":
+        return torch.randn((batch_size, n), generator=generator)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    lib = _lib()
+    out = torch.empty((batch_size, n), dtype=torch.float32, device=device)
+    rc = lib.elfi_philox_normals(
+        out.data_ptr(), batch_size, n, generator.initial_seed(),
+        device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.raise_on(rc, lib, "elfi_philox_normals")
+    philox_normals.launches += 1
+    return out
+
+
+philox_normals.launches = 0

@@ -1,5 +1,11 @@
 """Execution backends (counterpart of :mod:`elfi_tpu.parallel.backends`).
 
+The port runs on the card: a caller that names no device gets the global
+backend's, which is the current CUDA device unless a backend on another
+device was set.  Without a CUDA device such a call raises; the CPU is used
+only where it is asked for (``device="cpu"``, or
+``set_client("native", device="cpu")``).
+
 :class:`NativeBackend` runs a batch's program on one device.  On CUDA the
 program's ops are asynchronous launches, so ``submit`` returns as soon as
 they are queued; the backend records a CUDA event after them, and
@@ -11,14 +17,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["get_client", "set_client", "reset_client", "BackendBase",
-           "NativeBackend"]
+__all__ = ["get_client", "set_client", "reset_client", "default_device",
+           "resolve_device", "BackendBase", "NativeBackend"]
 
 _client = None
 
 
 def get_client():
-    """The global backend; a CPU :class:`NativeBackend` until one is set."""
+    """The global backend; a :class:`NativeBackend` on the current CUDA
+    device until one is set."""
     global _client
     if _client is None:
         _client = NativeBackend()
@@ -40,6 +47,23 @@ def set_client(client=None, **kwargs):
 def reset_client():
     global _client
     _client = None
+
+
+def default_device():
+    """The current CUDA device; raises if there is none, since the port
+    falls back to the CPU nowhere."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "elfi_tpu_torch runs on a CUDA device unless asked for the CPU, "
+            "and no CUDA device is available: pass device='cpu' or call "
+            "elfi_tpu_torch.set_client('native', device='cpu')")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device=None):
+    """``device`` as a ``torch.device``; None means the global backend's
+    device."""
+    return torch.device(device) if device is not None else get_client().device
 
 
 class _Failed:
@@ -102,14 +126,19 @@ class BackendBase:
 
 class NativeBackend(BackendBase):
     """Single-device backend.  ``device`` is the device an inference object
-    runs on when it is not given one itself.  ``num_cores=2`` keeps one
-    batch queued on the device while the host prepares the next."""
+    runs on when it is not given one itself; None means the current CUDA
+    device, looked up when it is used.  ``num_cores=2`` keeps one batch
+    queued on the device while the host prepares the next."""
 
     num_cores = 2
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
         super().__init__()
-        self.device = torch.device(device)
+        self._device = None if device is None else torch.device(device)
+
+    @property
+    def device(self):
+        return self._device if self._device is not None else default_device()
 
     def _launch(self, program, seed, batch_index, overrides, batch_size):
         out = program.run(seed, batch_index, overrides, batch_size)

@@ -10,19 +10,19 @@ from __future__ import annotations
 from collections import OrderedDict
 
 from ..compile.compiler import compile_program
-from .backends import get_client
+from .backends import get_client, resolve_device
 
 __all__ = ["BatchHandler"]
 
 
 class BatchHandler:
     def __init__(self, model, context, output_names, client=None,
-                 device="cpu"):
+                 device=None):
         self.model = model
         self.context = context
         self.output_names = tuple(output_names)
         self.client = client or get_client()
-        self.device = device
+        self.device = resolve_device(device)
         self._pending = OrderedDict()   # batch_index -> task_id
         self._submitted_args = {}       # batch_index -> (program, overrides)
         self.next_index = 0

@@ -24,7 +24,9 @@ TOL = np.array([0.2, 0.2, 1.0, 0.1])
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():
-    et.reset_client()
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
     yield
     et.reset_client()
 

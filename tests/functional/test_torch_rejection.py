@@ -5,6 +5,7 @@ data is the JAX package's draw."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +20,9 @@ MODELS = {"plain": ma2, "kernel": ma2_kernel}
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():
-    et.reset_client()
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
     yield
     et.reset_client()
 
@@ -93,15 +96,23 @@ def test_extra_outputs_and_progress_bar(capsys):
     assert "Number of samples: 50" in str(res)
 
 
-def test_requested_device_is_kept():
-    """A requested device is used as given, never replaced by the CPU."""
+def test_requested_device_is_kept(monkeypatch):
+    """A requested device is used as given, never replaced by the CPU; with
+    none requested the global backend's is used, the card by default."""
     m = ma2.get_model(seed_obs=4)
     et.set_client(et.NativeBackend(device="cuda"))
     assert et.Rejection(m["d"], batch_size=8).device.type == "cuda"
     assert et.Rejection(m["d"], batch_size=8,
                         device="cpu").device.type == "cpu"
-    et.set_client("native")
+    et.set_client("native", device="cpu")
     assert et.get_client().device.type == "cpu"
+    # a machine with a card: the default backend is on the current one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    et.set_client("native")
+    assert et.get_client().device == torch.device("cuda", 0)
+    assert et.Rejection(m["d"], batch_size=8).device == \
+        torch.device("cuda", 0)
     with pytest.raises(ValueError):
         et.set_client("sharded")
 

@@ -25,7 +25,9 @@ TRUE = np.array([0.6, 0.2])
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():
-    et.reset_client()
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
     yield
     et.reset_client()
 

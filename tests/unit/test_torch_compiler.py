@@ -19,6 +19,15 @@ from elfi_tpu_torch.utils.rng import _mix, fold_in, generator, stream_seed
 RTOL, ATOL = 1e-5, 1e-6
 
 
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
+
+
 def _ma2_overrides(b, seed=0):
     rng = np.random.default_rng(seed)
     return {"t1": rng.uniform(-1, 1, b).astype(np.float32),

@@ -13,6 +13,16 @@ import elfi_tpu_torch as et
 from elfi_tpu.ops.distances import distance_op as jax_distance_op
 from elfi_tpu_torch.ops.distances import distance_op
 
+
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
+
+
 RNG = np.random.default_rng(42)
 U = RNG.normal(size=(7, 5)).astype(np.float32)
 V_OBS = RNG.normal(size=(1, 5)).astype(np.float32)

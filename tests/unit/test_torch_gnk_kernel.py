@@ -17,10 +17,22 @@ import numpy as np
 import pytest
 import torch
 
-from elfi_tpu_torch.ops.kernels.gnk import (MAX_N_OBS, gnk_distance,
-                                            gnk_distance_noise,
+import elfi_tpu_torch as et
+from elfi_tpu_torch.ops.kernels import sort_network
+from elfi_tpu_torch.ops.kernels.gnk import (MAX_N_OBS, NETWORK_ROWS,
+                                            gnk_distance, gnk_distance_noise,
                                             gnk_distance_reference,
                                             gnk_sort_rows)
+
+
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
+
 
 N_OBS = 50
 
@@ -60,6 +72,43 @@ def test_cpu_wrapper_runs_the_plain_version():
     y[:, N_OBS:] = math.inf
     assert torch.equal(gnk_sort_rows(y), torch.sort(y, dim=1).values)
     assert gnk_distance.launches == before       # no kernel on the CPU
+
+
+def _rows_to_sort(b, n_obs, rows, seed):
+    """(b, rows) float32 rows: n_obs values, +inf pads beyond them, and
+    ties in every other row."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(size=(b, rows)).astype(np.float32)
+    y[1::2, : n_obs // 2] = y[1::2, :1]
+    y[:, n_obs:] = np.inf
+    return y
+
+
+@pytest.mark.parametrize("n_obs", [17, 50, 64])
+def test_sort_network_equals_np_sort(n_obs):
+    """The comparators the kernel runs for n_obs (its 50-row instance at
+    50, the 64-row one with +inf pads otherwise) sort as np.sort does."""
+    rows = 50 if n_obs == 50 else MAX_N_OBS
+    y = _rows_to_sort(512, n_obs, rows, seed=n_obs)
+    got = sort_network.apply(sort_network.network(rows), y.copy())
+    np.testing.assert_array_equal(got, np.sort(y, axis=1))
+
+
+def test_sort_network_sizes_and_committed_header():
+    assert NETWORK_ROWS == (50, MAX_N_OBS)
+    assert len(sort_network.batcher_pairs(64)) == 543
+    assert len(sort_network.network(50)) == 403
+    assert sort_network.network(64) == sort_network.batcher_pairs(64)
+    for rows in NETWORK_ROWS:
+        assert all(a < b < rows for a, b in sort_network.network(rows))
+    # the header the kernel includes is the generator's output
+    assert sort_network.HEADER.read_text() == sort_network.header()
+
+
+def test_cpu_sort_rows_takes_both_instances():
+    for rows in NETWORK_ROWS:
+        y = torch.tensor(_rows_to_sort(64, 40, rows, seed=rows))
+        assert torch.equal(gnk_sort_rows(y), torch.sort(y, dim=1).values)
 
 
 def _bad_calls():
@@ -128,10 +177,11 @@ def test_kernel_equals_plain_version_on_the_same_noise(cuda, b, n_obs):
 
 
 @pytest.mark.cuda
-def test_kernel_sort_equals_torch_sort(cuda):
+@pytest.mark.parametrize("rows", NETWORK_ROWS)
+def test_kernel_sort_equals_torch_sort(cuda, rows):
     b = 4099
-    y = torch.randn((b, MAX_N_OBS), generator=_gen(2, cuda), device=cuda)
-    y[::3, N_OBS:] = math.inf                  # the n_obs = 50 padding
+    y = torch.randn((b, rows), generator=_gen(2, cuda), device=cuda)
+    y[::3, 17:] = math.inf                     # the n_obs = 17 padding
     y[1::3, 40:] = y[1::3, :1]                 # ties
     before = gnk_sort_rows.launches
     got = gnk_sort_rows(y)

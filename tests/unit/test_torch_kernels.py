@@ -16,9 +16,22 @@ import numpy as np
 import pytest
 import torch
 
+import elfi_tpu_torch as et
 from elfi_tpu_torch.ops.kernels import _build
+from elfi_tpu_torch.ops.kernels._blocked import BLOCK, blocked_sum
 from elfi_tpu_torch.ops.kernels.ma2 import (ma2_distance, ma2_distance_noise,
-                                            ma2_distance_reference)
+                                            ma2_distance_reference,
+                                            philox_normals)
+
+
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
+
 
 N_OBS = 100
 # float32 sums are taken in another order by the two frameworks
@@ -59,6 +72,39 @@ def test_plain_version_equals_jax_on_the_same_noise(n_obs):
     d_noise = ma2_distance_noise(t1, t2, obs, torch.tensor(w))
     np.testing.assert_allclose(d_ref.numpy(), d_jax, rtol=RTOL, atol=ATOL)
     assert torch.equal(d_noise, d_ref)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 17, 98, 99])
+def test_blocked_sum_is_the_kernels_order(n):
+    """float32 blocks of BLOCK terms, each summed left to right from 0, the
+    block sums added in order in float64: the same bits as the loops the
+    kernels run, and within float32 rounding of the exact sum."""
+    rng = np.random.default_rng(n)
+    terms = torch.tensor(rng.normal(size=(64, n)).astype(np.float32) ** 3)
+    want = []
+    for row in terms.numpy():
+        s = np.float64(0.0)
+        for b0 in range(0, n, BLOCK):
+            acc = np.float32(0.0)
+            for t in row[b0:b0 + BLOCK]:
+                acc = np.float32(acc + t)
+            s = s + np.float64(acc)
+        want.append(s)
+    got = blocked_sum(terms)
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    exact = terms.double().sum(dim=1)
+    scale = terms.double().abs().sum(dim=1)
+    assert bool(((got - exact).abs() <= 8 * 2.0**-24 * scale).all())
+
+
+def test_cpu_normals_are_randn():
+    z = philox_normals(16, 5, _gen(7))
+    assert torch.equal(z, torch.randn((16, 5), generator=_gen(7)))
+    with pytest.raises(ValueError):
+        philox_normals(0, 5, _gen(7))
+    with pytest.raises(ValueError):
+        philox_normals(16, 0, _gen(7))
 
 
 def test_cpu_wrapper_runs_the_plain_version():
@@ -123,8 +169,10 @@ def test_cuda_source_is_in_the_package():
         assert "torch/extension.h" not in text
     header = (_build.CSRC / "philox.cuh").read_text()
     for helper in ("philox4x32_10(", "philox_block(", "open_uniform(",
-                   "box_muller("):
+                   "box_muller_fast("):
         assert helper in header
+    assert '#include "sort_network.cuh"' in \
+        (_build.CSRC / "gnk_distance.cu").read_text()
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
@@ -194,6 +242,22 @@ def test_kernel_statistics_match_plain_version(cuda):
     assert bool(torch.isfinite(d_k).all())
     assert abs(float(d_k.mean()) - float(d_p.mean())) < 0.02
     assert abs(float(d_k.std()) - float(d_p.std())) < 0.02
+
+
+@pytest.mark.cuda
+def test_box_muller_fast_matches_randn(cuda):
+    """The kernels' normals (Philox and box_muller_fast) against torch.randn:
+    mean and std within 0.02, and both tails as wide."""
+    before = philox_normals.launches
+    z = philox_normals(1 << 14, 102, _gen(5, cuda))
+    r = torch.randn((1 << 14, 102), generator=_gen(6, cuda), device=cuda)
+    assert philox_normals.launches == before + 1
+    assert bool(torch.isfinite(z).all())
+    assert abs(float(z.mean()) - float(r.mean())) < 0.02
+    assert abs(float(z.std()) - float(r.std())) < 0.02
+    for q in (0.001, 0.999):
+        assert abs(float(torch.quantile(z[:256].flatten(), q))
+                   - float(torch.quantile(r[:256].flatten(), q))) < 0.2
 
 
 @pytest.mark.cuda

@@ -8,7 +8,17 @@ import pytest
 
 from elfi_tpu.methods import results as jresults
 from elfi_tpu.methods import utils as jutils
+import elfi_tpu_torch as et
 from elfi_tpu_torch.methods import results, utils
+
+
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
 
 
 @pytest.mark.parametrize("weights", [None, "random"])

@@ -19,6 +19,15 @@ from elfi_tpu_torch.models import ma2, ma2_kernel
 from elfi_tpu_torch.utils import get_sub_seed
 
 
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
+
+
 def _graph(m):
     dag = m.dag
     return {

@@ -8,10 +8,20 @@ import torch
 from elfi_tpu.models import ma2 as jax_ma2
 from elfi_tpu.ops import distances as jdist
 from elfi_tpu.ops import distributions as jdists
+import elfi_tpu_torch as et
 from elfi_tpu_torch.models import ma2
 from elfi_tpu_torch.ops import distances, distributions
 
 RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
 
 
 def _close(t, j, **kw):

@@ -11,6 +11,59 @@ from elfi_tpu_torch.models import ma2
 from elfi_tpu_torch.parallel import BatchHandler, NativeBackend
 
 
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A machine without a CUDA device, and no backend set: the state in
+    which an entry point called with no device must raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    et.reset_client()
+
+
+def _entry_points():
+    from elfi_tpu_torch.compile.compiler import compile_program
+    from elfi_tpu_torch.methods.density_ratio_estimation import \
+        DensityRatioEstimation
+    m = ma2.get_model(seed_obs=4)
+    ctx = ComputationContext(batch_size=8, seed=1)
+    yield "Rejection", lambda: et.Rejection(m["d"], batch_size=8).sample(
+        10, n_sim=16, bar=False)
+    yield "SMC", lambda: et.SMC(m["d"], batch_size=8).sample(
+        10, thresholds=[1.0], bar=False)
+    yield "Model.generate", lambda: m.generate(8)
+    yield "node.generate", lambda: m["d"].generate(8)
+    yield "ModelPrior", lambda: et.ModelPrior(m).rvs(4, seed=0)
+    yield "DensityRatioEstimation", lambda: DensityRatioEstimation(n=2)
+    yield "compile_program", lambda: compile_program(m, ("d",))
+    yield "BatchHandler", lambda: BatchHandler(m, ctx, ("d",))
+
+
+@pytest.mark.parametrize("entry", [n for n, _ in _entry_points()])
+def test_entry_point_without_a_device_raises_without_cuda(no_cuda, entry):
+    """No CPU fallback: with no card and no CPU asked for, the call raises
+    and nothing runs."""
+    call = dict(_entry_points())[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_cpu_asked_for_runs_without_cuda(no_cuda):
+    m = ma2.get_model(seed_obs=4)
+    assert m.generate(8, outputs="d", device="cpu")["d"].shape == (8,)
+    et.set_client("native", device="cpu")
+    res = et.Rejection(m["d"], batch_size=8, seed=1).sample(4, n_sim=16,
+                                                           bar=False)
+    assert res.samples["t1"].shape == (4,)
+
+
 def _handler(m, outputs=("t1", "d"), client=None, batch_size=16, seed=3):
     ctx = ComputationContext(batch_size=batch_size, seed=seed)
     return BatchHandler(m, ctx, outputs, client=client or NativeBackend())

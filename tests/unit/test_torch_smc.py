@@ -31,7 +31,9 @@ from elfi_tpu_torch.ops import distributions as dists
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():
-    et.reset_client()
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
     yield
     et.reset_client()
 

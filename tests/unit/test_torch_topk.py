@@ -12,8 +12,18 @@ import jax
 import jax.numpy as jnp
 
 from elfi_tpu.ops import topk as jtopk
+import elfi_tpu_torch as et
 from elfi_tpu_torch.interop import from_numpy_state
 from elfi_tpu_torch.ops import topk
+
+
+@pytest.fixture(autouse=True)
+def _native_cpu_client():
+    """The port runs on the card unless asked for the CPU: these tests ask
+    for it through the global backend."""
+    et.set_client("native", device="cpu")
+    yield
+    et.reset_client()
 
 
 def _batch(rng, b, special=True):
