@@ -14,7 +14,11 @@ Phases, each of which raises on failure (exit code != 0):
 3. Hold the MA2 distance kernel (K1) against its plain PyTorch version on
    the card: the same noise in both (max relative error <= 1e-5), the
    kernel's own Philox stream against ``torch.randn`` (mean and std of the
-   distances within 0.02), determinism per seed, the fused rejection loop
+   distances within 0.02), the kernels' normals (Philox and
+   ``box_muller_fast``, 2**20 x 102 values) against ``torch.randn``'s
+   (mean and std within 1e-3, the 1e-4 and 1 - 1e-4 quantiles within 0.02)
+   and the normal CDF (Kolmogorov-Smirnov distance < 3e-4), determinism per
+   seed, the fused rejection loop
    against the batch-at-a-time loop (bit-identical), and the time per call
    of the kernel, the plain version and the top-N merge.
 4. The main path on the plain MA2 graph: ``Rejection(ma2.get_model(...)
@@ -273,6 +277,23 @@ def smc_proposal_params(batch, device):
             cols["t2"].to(torch.float32).contiguous())
 
 
+def normal_stats(x):
+    """Mean, std, the 1e-4 and 1 - 1e-4 quantiles and the Kolmogorov-Smirnov
+    distance to the standard normal CDF of the values of ``x``.  At 2^20 x
+    102 values the sampling sigmas are about 1e-4 (mean), 7e-5 (std), 2.4e-3
+    (each tail quantile) and 8e-5 (KS); a radius 1 % off moves the KS
+    distance by 2.4e-3 and the tail quantiles by 0.037."""
+    v = torch.sort(x.flatten()).values
+    n = v.numel()
+    cdf = torch.special.ndtr(v.double())
+    i = torch.arange(n, dtype=torch.float64, device=v.device)
+    ks = torch.maximum((i + 1) / n - cdf, cdf - i / n).max()
+    return {"mean": float(x.mean()), "std": float(x.std()),
+            "q1e-4": float(v[round(1e-4 * (n - 1))]),
+            "q1-1e-4": float(v[round((1 - 1e-4) * (n - 1))]),
+            "ks": float(ks)}
+
+
 def phase_kernel_checks(device):
     """K1 against its plain version on the card, and the times per call."""
     from elfi_tpu_torch.ops import topk
@@ -284,16 +305,21 @@ def phase_kernel_checks(device):
     result = {}
 
     # the kernels' own normals (Philox, box_muller_fast) against torch.randn
+    # and the normal CDF, at limits a few sampling sigmas wide
     g = torch.Generator(device=device)
-    z = philox_normals(2**16, N_OBS + 2, g.manual_seed(9))
+    z = philox_normals(2**20, N_OBS + 2, g.manual_seed(9))
     r = torch.randn(z.shape, generator=g.manual_seed(10), device=device)
-    stats = [float(x) for x in (z.mean(), r.mean(), z.std(), r.std())]
-    log(f"normals of box_muller_fast {tuple(z.shape)}: mean {stats[0]!r} "
-        f"(randn {stats[1]!r}), std {stats[2]!r} (randn {stats[3]!r}) "
-        f"(tolerance 0.02)")
     check(bool(torch.isfinite(z).all()), "box_muller_fast: not finite")
-    check(abs(stats[0] - stats[1]) < 0.02 and abs(stats[2] - stats[3])
-          < 0.02, "box_muller_fast disagrees with torch.randn")
+    sz, sr = normal_stats(z), normal_stats(r)
+    log(f"normals of box_muller_fast {tuple(z.shape)}: {sz!r}; torch.randn: "
+        f"{sr!r} (limits: mean and std 1e-3 from randn's, tail quantiles "
+        f"0.02 from randn's, KS against the normal CDF 3e-4)")
+    check(abs(sz["mean"] - sr["mean"]) < 1e-3
+          and abs(sz["std"] - sr["std"]) < 1e-3,
+          "box_muller_fast: mean or std disagrees with torch.randn")
+    check(all(abs(sz[q] - sr[q]) < 0.02 for q in ("q1e-4", "q1-1e-4")),
+          "box_muller_fast: a tail disagrees with torch.randn")
+    check(sz["ks"] < 3e-4, "box_muller_fast: KS distance to the normal CDF")
     del z, r
 
     # the same noise in both: the kernel's arithmetic, exactly; at the

@@ -22,6 +22,7 @@ asynchronous launch, so calling ``fn`` does not wait for the device.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..model.model import node_uid
 from ..utils import to_tensor
@@ -39,26 +40,21 @@ def _adaptive_versions(model):
         for n, st in model.dag.nodes.items() if st.get("adaptive")))
 
 
-def _resolve_device(device):
-    # imported here: the parallel package imports this module
-    from ..parallel.backends import resolve_device
-    return resolve_device(device)
-
-
-def compile_program(model, outputs, override_names=(), device=None):
+def compile_program(model, outputs, override_names=(), *, device):
     """Return a (cached) :class:`CompiledProgram` for ``outputs`` of
-    ``model`` on ``device`` (None: the global backend's) with the given set
-    of overridable node names."""
+    ``model`` on ``device`` with the given set of overridable node names.
+    The caller names the device: the entry points resolve a default once."""
     outputs = tuple(outputs)
     override_names = tuple(sorted(override_names))
-    device = _resolve_device(device)
+    device = torch.device(device)
     cache = model.__dict__.setdefault("_program_cache", {})
     key = (model.revision, outputs, override_names, str(device),
            _adaptive_versions(model))
     if key in cache:
         cache[key] = cache.pop(key)      # LRU: hot entries move to the end
     else:
-        cache[key] = CompiledProgram(model, outputs, override_names, device)
+        cache[key] = CompiledProgram(model, outputs, override_names,
+                                     device=device)
         # the cache is shared between a model and its copies: bound its
         # size, evicting the oldest-touched entry and never the new one
         while len(cache) > 64:
@@ -67,11 +63,11 @@ def compile_program(model, outputs, override_names=(), device=None):
 
 
 class CompiledProgram:
-    def __init__(self, model, outputs, override_names=(), device=None):
+    def __init__(self, model, outputs, override_names=(), *, device):
         self.model = model
         self.outputs = tuple(outputs)
         self.override_names = frozenset(override_names)
-        self.device = _resolve_device(device)
+        self.device = torch.device(device)
         for o in self.outputs:
             if o not in model.dag:
                 raise ValueError(f"Unknown output node {o!r}")

@@ -11,10 +11,8 @@ from __future__ import annotations
 
 from math import ceil
 
-import torch
-
 from ..model.model import ComputationContext, Model, NodeReference
-from ..parallel.backends import get_client
+from ..parallel.backends import get_client, resolve_device
 from ..parallel.batches import BatchHandler
 
 __all__ = ["ParameterInference", "Sampler"]
@@ -38,8 +36,7 @@ class ParameterInference:
         self.model = model.copy()
         self.output_names = self._check_outputs(output_names)
         self.client = get_client()
-        self.device = torch.device(device if device is not None
-                                   else self.client.device)
+        self.device = resolve_device(device)
         self.computation_context = ComputationContext(batch_size=batch_size,
                                                       seed=seed)
         self.batches = BatchHandler(self.model,

@@ -141,7 +141,10 @@ class Model:
                  seed=None, device=None):
         """Compute one batch on ``device`` (None: the global backend's);
         returns a dict of numpy arrays."""
+        # imported here: the compiler and the parallel package import this
+        # module
         from ..compile.compiler import compile_program
+        from ..parallel.backends import resolve_device
 
         if outputs is None:
             outputs = sorted(self.dag.nodes)
@@ -150,7 +153,7 @@ class Model:
         context = ComputationContext(batch_size=batch_size, seed=seed)
         prog = compile_program(self, tuple(outputs),
                                override_names=tuple(sorted(with_values or ())),
-                               device=device)
+                               device=resolve_device(device))
         out = prog.run(context.seed, batch_index=0,
                        overrides=with_values or {},
                        batch_size=context.batch_size)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..model.model import Distance, Model, Prior, Simulator, Summary
-from ..ops.distributions import Distribution
+from ..ops.distributions import Distribution, draw_device
 from ._observed import load_observed
 
 __all__ = ["MA2", "autocov", "get_model", "observed_data", "CustomPrior1",
@@ -54,8 +54,7 @@ class CustomPrior1(Distribution):
     @classmethod
     def rvs(cls, b, size=1, generator=None):
         u = torch.rand((size,), generator=generator,
-                       device=generator.device if generator is not None
-                       else "cpu")
+                       device=draw_device(generator))
         return torch.where(u < 0.5,
                            torch.sqrt(2. * u) * b - b,
                            -torch.sqrt(2. * (1. - u)) * b + b)

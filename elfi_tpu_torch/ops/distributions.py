@@ -4,8 +4,9 @@
 Conventions
 -----------
 - ``rvs(*params, size=n, generator=g)`` returns a tensor on ``g``'s device
-  whose leading axis is the batch axis of length ``n``; the explicit
-  ``torch.Generator`` replaces the JAX package's ``key``.
+  (with no ``g``, the global backend's: :func:`draw_device`) whose leading
+  axis is the batch axis of length ``n``; the explicit ``torch.Generator``
+  replaces the JAX package's ``key``.
 - Univariate distributions use scipy's ``loc``/``scale`` parameterisation.
 - Parameters may be Python scalars or per-batch tensors of shape
   ``(n, ...)`` (hierarchical priors, e.g. MA2's ``t2 | t1``).
@@ -40,8 +41,16 @@ def _draw_shape(size, *params):
     return (size,) + b
 
 
-def _device(generator):
-    return generator.device if generator is not None else torch.device("cpu")
+def draw_device(generator):
+    """The device a draw lands on: ``generator``'s, or with no generator the
+    global backend's (the current CUDA device unless a backend on another
+    device was set), as a user's ``norm.rvs(size=n)`` runs on the card."""
+    if generator is not None:
+        return generator.device
+    # imported here: the parallel package imports the model, which imports
+    # this module
+    from ..parallel.backends import resolve_device
+    return resolve_device(None)
 
 
 class Distribution:
@@ -76,7 +85,8 @@ class uniform(Distribution):
     @classmethod
     def rvs(cls, loc=0.0, scale=1.0, size=1, generator=None):
         shape = _draw_shape(size, loc, scale)
-        u = torch.rand(shape, generator=generator, device=_device(generator))
+        u = torch.rand(shape, generator=generator,
+                       device=draw_device(generator))
         return loc + scale * u
 
     @classmethod
@@ -109,7 +119,8 @@ class norm(Distribution):
     @classmethod
     def rvs(cls, loc=0.0, scale=1.0, size=1, generator=None):
         shape = _draw_shape(size, loc, scale)
-        z = torch.randn(shape, generator=generator, device=_device(generator))
+        z = torch.randn(shape, generator=generator,
+                        device=draw_device(generator))
         return loc + scale * z
 
     @classmethod
@@ -155,7 +166,7 @@ class truncnorm(Distribution):
     @classmethod
     def rvs(cls, a, b, loc=0.0, scale=1.0, size=1, generator=None):
         shape = _draw_shape(size, a, b, loc, scale)
-        device = _device(generator)
+        device = draw_device(generator)
         fa, fb = cls._cdf_bounds(a, b)
         u = torch.rand(shape, generator=generator, device=device)
         # uniform on [1e-7, 1 - 1e-7), as the JAX package draws it
@@ -218,7 +229,7 @@ class multivariate_normal(Distribution):
 
     @classmethod
     def rvs(cls, mean, cov, size=1, generator=None):
-        mean, L = cls._mean_chol(mean, cov, _device(generator))
+        mean, L = cls._mean_chol(mean, cov, draw_device(generator))
         z = torch.randn((size, mean.shape[-1]), generator=generator,
                         device=mean.device)
         return mean + z @ L.T

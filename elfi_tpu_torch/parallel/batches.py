@@ -9,20 +9,22 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+import torch
+
 from ..compile.compiler import compile_program
-from .backends import get_client, resolve_device
+from .backends import get_client
 
 __all__ = ["BatchHandler"]
 
 
 class BatchHandler:
-    def __init__(self, model, context, output_names, client=None,
-                 device=None):
+    def __init__(self, model, context, output_names, client=None, *,
+                 device):
         self.model = model
         self.context = context
         self.output_names = tuple(output_names)
         self.client = client or get_client()
-        self.device = resolve_device(device)
+        self.device = torch.device(device)
         self._pending = OrderedDict()   # batch_index -> task_id
         self._submitted_args = {}       # batch_index -> (program, overrides)
         self.next_index = 0

@@ -120,7 +120,7 @@ def test_fused_overrides_actually_flow(m4):
     rej = et.Rejection(m4["d"], batch_size=100, seed=2)
     rej.set_objective(10, n_sim=300)
     prog = compile_program(rej.model, tuple(rej.output_names),
-                           override_names=("t1", "t2"))
+                           override_names=("t1", "t2"), device=rej.device)
     rej.bar = False
     rej._run_fused(prog, None, overrides_spec=lambda i: {
         "t1": torch.full((100,), 0.7), "t2": torch.full((100,), 0.15)})

@@ -3,6 +3,8 @@
 JAX package's, from one state carried across by
 ``interop.adaptive_state_from_numpy``."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -91,7 +93,7 @@ def test_program_cache_tracks_shared_adaptive_state():
     (whose revision does not change) -- the case of the JAX package's
     test_compiler.py."""
     for pkg, mod, comp, seed in (
-            (et, ma2, compile_program, 0),
+            (et, ma2, partial(compile_program, device="cpu"), 0),
             (elfi, jax_ma2, jax_compile_program, jax.random.key(0))):
         m = mod.get_model(seed_obs=4)
         pkg.AdaptiveDistance(m["S1"], m["S2"], model=m, name="ad")
@@ -143,7 +145,7 @@ def test_adaptive_distances_are_recomputed_under_the_new_weights():
         50, n_sim=4 * 256, bar=False)
     w = m["ad"].adaptive_state["w"][-1].astype(np.float32)
     u = np.stack([res.outputs["S1"], res.outputs["S2"]], axis=1) * w
-    prog = compile_program(m, ("S1", "S2"))
+    prog = compile_program(m, ("S1", "S2"), device="cpu")
     v = np.array([float(prog.observed_value(s)[0]) for s in ("S1", "S2")],
                  np.float32) * w
     np.testing.assert_allclose(res.outputs["ad"],

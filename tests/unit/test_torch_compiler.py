@@ -43,7 +43,7 @@ def test_overridden_ma2_equals_jax(seed_obs):
     pj = jax_compile_program(jax_ma2.get_model(seed_obs=seed_obs), outs,
                              override_names=tuple(ov))
     pt = compile_program(ma2.get_model(seed_obs=seed_obs), outs,
-                         override_names=tuple(ov))
+                         override_names=tuple(ov), device="cpu")
     oj = pj.run(jax.random.key(0), 0, ov, batch_size=b)
     ot = pt.run(0, 0, ov, batch_size=b)
     for k in outs:
@@ -58,56 +58,57 @@ def test_overridden_ma2_equals_jax(seed_obs):
 
 def test_scalar_override_broadcasts_over_batch():
     prog = compile_program(ma2.get_model(seed_obs=4), ("MA2",),
-                           override_names=("t1", "t2"))
+                           override_names=("t1", "t2"), device="cpu")
     out = prog.run(1, 0, {"t1": 0.6, "t2": np.float32(0.2)}, batch_size=5)
     assert out["MA2"].shape == (5, 100)
 
 
 def test_undeclared_override_raises():
     m = ma2.get_model(seed_obs=4)
-    prog = compile_program(m, ("d",), override_names=("t1",))
+    prog = compile_program(m, ("d",), override_names=("t1",), device="cpu")
     with pytest.raises(ValueError, match="not declared"):
         prog.run(0, 0, {"t2": np.zeros(4, np.float32)}, batch_size=4)
     with pytest.raises(ValueError, match="not declared"):
         prog.traceable(4)(0, 0, {"t2": np.zeros(4, np.float32)})
     with pytest.raises(ValueError, match="Unknown override"):
-        compile_program(m, ("d",), override_names=("nope",))
+        compile_program(m, ("d",), override_names=("nope",), device="cpu")
     with pytest.raises(ValueError, match="Unknown output"):
-        compile_program(m, ("nope",))
+        compile_program(m, ("nope",), device="cpu")
 
 
 def test_reduce_to_needed_nodes_as_jax():
     mt, mj = ma2.get_model(seed_obs=4), jax_ma2.get_model(seed_obs=4)
     for outs, ov in ((("S1",), ()), (("d",), ("S1", "S2")),
                      (("d",), ("MA2",))):
-        assert compile_program(mt, outs, ov).order == \
+        assert compile_program(mt, outs, ov, device="cpu").order == \
             jax_compile_program(mj, outs, ov).order
 
 
 def test_program_cache():
     m = ma2.get_model(seed_obs=4)
-    p1 = compile_program(m, ("d",))
-    assert compile_program(m, ("d",)) is p1
-    assert compile_program(m.copy(), ("d",)) is p1
+    p1 = compile_program(m, ("d",), device="cpu")
+    assert compile_program(m, ("d",), device="cpu") is p1
+    assert compile_program(m.copy(), ("d",), device="cpu") is p1
     assert p1.observed_value("S1") is p1.observed_value("S1")
     m.update_node("d", dummy=1)
-    assert compile_program(m, ("d",)) is not p1
+    assert compile_program(m, ("d",), device="cpu") is not p1
 
 
 def test_unrelated_node_leaves_streams_unchanged():
     m = ma2.get_model(seed_obs=4)
     outs = ("t1", "t2", "MA2", "d")
-    before = compile_program(m, outs).run(7, 3, batch_size=64)
+    before = compile_program(m, outs, device="cpu").run(7, 3, batch_size=64)
     et.Prior("norm", 0, 1, model=m, name="unrelated")
     et.Operation(lambda x: x * 2, m["unrelated"], model=m, name="twice")
-    after = compile_program(m, outs + ("twice",)).run(7, 3, batch_size=64)
+    after = compile_program(m, outs + ("twice",), device="cpu").run(
+        7, 3, batch_size=64)
     for k in outs:
         assert torch.equal(before[k], after[k]), k
 
 
 def test_same_seed_same_outputs_and_streams_differ():
     m = ma2.get_model(seed_obs=4)
-    prog = compile_program(m, ("t1", "MA2", "d"))
+    prog = compile_program(m, ("t1", "MA2", "d"), device="cpu")
     a = prog.run(5, 0, batch_size=32)
     b = prog.run(5, 0, batch_size=32)
     c = prog.run(5, 1, batch_size=32)
@@ -158,7 +159,7 @@ def test_host_graphs_not_ported_yet():
     et.Prior("uniform", 0, 1, model=m, name="p")
     et.Simulator(lambda p, batch_size, generator: p, m["p"], host=True,
                  observed=np.zeros(1), model=m, name="sim")
-    prog = compile_program(m, ("sim",))
+    prog = compile_program(m, ("sim",), device="cpu")
     assert prog.host
     with pytest.raises(NotImplementedError):
         prog.run(0, 0, batch_size=2)

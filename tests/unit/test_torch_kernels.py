@@ -244,20 +244,36 @@ def test_kernel_statistics_match_plain_version(cuda):
     assert abs(float(d_k.std()) - float(d_p.std())) < 0.02
 
 
+def _sorted_and_ks(x):
+    """The values of ``x`` sorted, and their Kolmogorov-Smirnov distance to
+    the standard normal CDF."""
+    v = torch.sort(x.flatten()).values
+    n = v.numel()
+    cdf = torch.special.ndtr(v.double())
+    i = torch.arange(n, dtype=torch.float64, device=v.device)
+    return v, float(torch.maximum((i + 1) / n - cdf, cdf - i / n).max())
+
+
 @pytest.mark.cuda
 def test_box_muller_fast_matches_randn(cuda):
-    """The kernels' normals (Philox and box_muller_fast) against torch.randn:
-    mean and std within 0.02, and both tails as wide."""
+    """The kernels' normals (Philox and box_muller_fast) against torch.randn
+    at 2^20 x 102 values, within a few sampling sigmas: mean and std within
+    1e-3 (sigmas 1e-4 and 7e-5), the 1e-4 and 1 - 1e-4 quantiles within
+    0.02 (sigma 2.4e-3) and the KS distance to the normal CDF under 3e-4
+    (typically 8e-5; a radius 1 % off gives 2.4e-3)."""
     before = philox_normals.launches
-    z = philox_normals(1 << 14, 102, _gen(5, cuda))
-    r = torch.randn((1 << 14, 102), generator=_gen(6, cuda), device=cuda)
+    z = philox_normals(1 << 20, 102, _gen(5, cuda))
+    r = torch.randn((1 << 20, 102), generator=_gen(6, cuda), device=cuda)
     assert philox_normals.launches == before + 1
     assert bool(torch.isfinite(z).all())
-    assert abs(float(z.mean()) - float(r.mean())) < 0.02
-    assert abs(float(z.std()) - float(r.std())) < 0.02
-    for q in (0.001, 0.999):
-        assert abs(float(torch.quantile(z[:256].flatten(), q))
-                   - float(torch.quantile(r[:256].flatten(), q))) < 0.2
+    assert abs(float(z.mean()) - float(r.mean())) < 1e-3
+    assert abs(float(z.std()) - float(r.std())) < 1e-3
+    (vz, ks), (vr, _) = _sorted_and_ks(z), _sorted_and_ks(r)
+    n = vz.numel()
+    for q in (1e-4, 1 - 1e-4):
+        i = round(q * (n - 1))
+        assert abs(float(vz[i]) - float(vr[i])) < 0.02, q
+    assert ks < 3e-4
 
 
 @pytest.mark.cuda

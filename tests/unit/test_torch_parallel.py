@@ -8,6 +8,7 @@ import torch
 import elfi_tpu_torch as et
 from elfi_tpu_torch.model.model import ComputationContext
 from elfi_tpu_torch.models import ma2
+from elfi_tpu_torch.ops import distributions as dists
 from elfi_tpu_torch.parallel import BatchHandler, NativeBackend
 
 
@@ -29,11 +30,9 @@ def no_cuda(monkeypatch):
 
 
 def _entry_points():
-    from elfi_tpu_torch.compile.compiler import compile_program
     from elfi_tpu_torch.methods.density_ratio_estimation import \
         DensityRatioEstimation
     m = ma2.get_model(seed_obs=4)
-    ctx = ComputationContext(batch_size=8, seed=1)
     yield "Rejection", lambda: et.Rejection(m["d"], batch_size=8).sample(
         10, n_sim=16, bar=False)
     yield "SMC", lambda: et.SMC(m["d"], batch_size=8).sample(
@@ -42,8 +41,13 @@ def _entry_points():
     yield "node.generate", lambda: m["d"].generate(8)
     yield "ModelPrior", lambda: et.ModelPrior(m).rvs(4, seed=0)
     yield "DensityRatioEstimation", lambda: DensityRatioEstimation(n=2)
-    yield "compile_program", lambda: compile_program(m, ("d",))
-    yield "BatchHandler", lambda: BatchHandler(m, ctx, ("d",))
+    # a draw with no generator lands on the global backend's device
+    yield "norm.rvs", lambda: dists.norm.rvs(size=4)
+    yield "uniform.rvs", lambda: dists.uniform.rvs(size=4)
+    yield "truncnorm.rvs", lambda: dists.truncnorm.rvs(-1.0, 1.0, size=4)
+    yield "multivariate_normal.rvs", lambda: dists.multivariate_normal.rvs(
+        [0.0, 0.0], 1.0, size=4)
+    yield "CustomPrior1.rvs", lambda: ma2.CustomPrior1.rvs(2.0, size=4)
 
 
 @pytest.mark.parametrize("entry", [n for n, _ in _entry_points()])
@@ -53,6 +57,24 @@ def test_entry_point_without_a_device_raises_without_cuda(no_cuda, entry):
     call = dict(_entry_points())[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+def _lower_layers():
+    from elfi_tpu_torch.compile.compiler import compile_program
+    m = ma2.get_model(seed_obs=4)
+    ctx = ComputationContext(batch_size=8, seed=1)
+    yield "compile_program", lambda **kw: compile_program(m, ("d",), **kw)
+    yield "BatchHandler", lambda **kw: BatchHandler(m, ctx, ("d",), **kw)
+
+
+@pytest.mark.parametrize("layer", [n for n, _ in _lower_layers()])
+def test_lower_layers_take_the_device_they_are_given(no_cuda, layer):
+    """The entry points resolve the default device once; the program and
+    the batch handler below them are always given one and keep it."""
+    make = dict(_lower_layers())[layer]
+    with pytest.raises(TypeError, match="device"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
 
 
 def test_cpu_asked_for_runs_without_cuda(no_cuda):
@@ -66,7 +88,8 @@ def test_cpu_asked_for_runs_without_cuda(no_cuda):
 
 def _handler(m, outputs=("t1", "d"), client=None, batch_size=16, seed=3):
     ctx = ComputationContext(batch_size=batch_size, seed=seed)
-    return BatchHandler(m, ctx, outputs, client=client or NativeBackend())
+    return BatchHandler(m, ctx, outputs, client=client or NativeBackend(),
+                        device="cpu")
 
 
 def test_batches_are_consumed_in_submission_order():
