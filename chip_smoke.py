@@ -63,7 +63,19 @@ Phases, each of which raises on failure (exit code != 0):
 13. Profile a few batches of each rejection graph and the whole gauss2d SMC
    run: device busy share of the wall time and the time by kernel (the top
    five printed, the table written).
-14. The default device: ``Rejection(m["d"], batch_size=2**21,
+14. BSL at the JAX bench's operating point (``bench.py:_bench_bsl_ma2``)
+   with no ``device=`` and no backend set: ``BSL(ma2.get_model(
+   seed_obs=271), n_sim_round=500, likelihood=standard_likelihood(
+   shrinkage="warton", penalty=0.3), seed=4).sample(1000, burn_in=200,
+   ...)`` after a warm-up with seed 3, its fused loop under
+   ``torch.cuda.set_sync_debug_mode("error")``, gated at |chain mean -
+   (0.6, 0.2)| < 0.1 with an acceptance rate in (0.05, 1); one chain per
+   seed; launches and device time per step from two profiled chains
+   (table written), the busy share, and neither distance kernel launched;
+   then the JAX package's ``TestFusedBSL`` point fused and on the host
+   (means within 0.15), the unbiased estimator fused and the robust
+   ('mean') host chain.
+15. The default device: ``Rejection(m["d"], batch_size=2**21,
    seed=1).sample(1000, n_sim=8 * 2**21)`` on the MA2 kernel graph with no
    ``device=`` anywhere and no backend set must run on cuda:0 through K1.
 
@@ -127,6 +139,15 @@ GAUSS_BATCH = 16384
 GAUSS_N = 2000
 GAUSS_THRESHOLDS = [2.0, 1.0, 0.5, 0.3]
 SMC_BATCH = 2000
+# BSL: the JAX bench's ma2_bsl phase (bench.py:_bench_bsl_ma2)
+BSL_N = 1000
+BSL_N_SIM_ROUND = 500
+BSL_BURN_IN = 200
+BSL_SAMPLE_KW = dict(sigma_proposals=np.diag([.05, .05]),
+                     params0=np.array([[.6, .2]]), burn_in=BSL_BURN_IN,
+                     bar=False)
+BSL_GATE = 0.1
+BSL_PROFILE_STEPS = 20
 
 # The card's rates for a kernel's bound, H100 SXM at its 1.98 GHz boost clock
 # over 132 SMs: HBM bytes per second; thread operations per second through
@@ -852,6 +873,155 @@ def phase_adaptive_smc(device):
     return out
 
 
+def sync_guarded(fn):
+    """``fn`` run with every synchronisation of the host with the card
+    raising an error (``torch.cuda.set_sync_debug_mode("error")``)."""
+    def run(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
+def bsl_profile(bsl_run, n_steps):
+    """(CUDA kernel and copy events, device microseconds) of one fused
+    chain of ``n_steps`` steps, and the profile itself."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bsl_run(5, n_steps)
+        torch.cuda.synchronize()
+    events, device_us = device_table(prof)
+    n_events = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    return n_events, device_us, events
+
+
+def phase_bsl():
+    """BSL on MA2 at the JAX bench's point, with no ``device=`` anywhere: the
+    fused chain, gated; its host syncs, launches, time per step and busy
+    share; then the JAX package's fused-against-host test point."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods.bsl import (method, robust_likelihood,
+                                            standard_likelihood,
+                                            unbiased_likelihood)
+    from elfi_tpu_torch.models import ma2
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    et.reset_client()
+    m = ma2.get_model(seed_obs=SEED_OBS)
+    warton = standard_likelihood(shrinkage="warton", penalty=0.3)
+
+    def make(seed, likelihood=warton, n_sim_round=BSL_N_SIM_ROUND):
+        return et.BSL(m, n_sim_round=n_sim_round, feature_names=["S1", "S2"],
+                      likelihood=likelihood, seed=seed)
+
+    def run(seed, n_steps=BSL_N, **kw):
+        """(result, seconds of sample(), sampler) of one chain."""
+        bsl = make(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bsl.sample(n_steps, **{**BSL_SAMPLE_KW, **kw})
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, bsl
+
+    run(3)                                                     # warm-up
+    # the guard fails on a sync: show that it does, then run the timed
+    # chain's loop under it
+    try:
+        sync_guarded(lambda: torch.ones(1, device="cuda").item())()
+        check(False, "set_sync_debug_mode('error') let .item() through")
+    except RuntimeError:
+        pass
+    orig = method.BSL._fused_chain
+    method.BSL._fused_chain = sync_guarded(orig)
+    ma2_distance.launches = gnk_distance.launches = 0
+    try:
+        res, dt, bsl = run(4)
+    finally:
+        method.BSL._fused_chain = orig
+    launches = {"ma2_distance": ma2_distance.launches,
+                "gnk_distance": gnk_distance.launches}
+    means = res.sample_means_array
+    err = np.abs(means - TRUE_PARAMS)
+    check(bsl.device == torch.device("cuda", 0),
+          f"BSL without device= ran on {bsl.device}")
+    check(res.n_sim == BSL_N * BSL_N_SIM_ROUND and res.n_samples ==
+          BSL_N - BSL_BURN_IN, f"BSL: n_sim {res.n_sim}, {res.n_samples}")
+    check(bool(np.all(np.isfinite(res.samples_array))), "BSL: non-finite")
+    log(f"ma2 bsl: chain means {means.tolist()!r} |err| {err.tolist()!r} "
+        f"(gate < {BSL_GATE}); acceptance {res.acc_rate!r}; {BSL_N} steps "
+        f"of {BSL_N_SIM_ROUND} sims in {dt!r} s on {bsl.device}, no host "
+        f"sync inside the loop; launches {launches} (BSL reads S1, S2)")
+    check(bool(np.all(err < BSL_GATE)), f"BSL gate failed: {means}")
+    check(0.05 < res.acc_rate < 1.0, f"BSL acceptance {res.acc_rate}")
+    check(launches == {"ma2_distance": 0, "gnk_distance": 0},
+          f"BSL launched a distance kernel: {launches}")
+    again, _, _ = run(4)
+    other, _, _ = run(5)
+    check(np.array_equal(again.samples_array, res.samples_array),
+          "BSL: two chains with seed 4 differ")
+    check(not np.array_equal(other.samples_array, res.samples_array),
+          "BSL: the chains of seeds 4 and 5 are equal")
+
+    # launches and device time of a step: two profiled chains, differenced
+    def short(seed, n_steps):
+        make(seed).sample(n_steps, **BSL_SAMPLE_KW)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    n1, us1, _ = bsl_profile(short, BSL_PROFILE_STEPS + 1)
+    n2, us2, events = bsl_profile(short, 2 * BSL_PROFILE_STEPS + 1)
+    per_step = (n2 - n1) / BSL_PROFILE_STEPS
+    device_ms = (us2 - us1) / 1e3 / BSL_PROFILE_STEPS
+    wall_ms = dt * 1e3 / BSL_N
+    (OUT_DIR / "profile_ma2_bsl.txt").write_text(events.table(
+        sort_by="self_device_time_total", row_limit=40))
+    (OUT_DIR / "profile_ma2_bsl_host.txt").write_text(events.table(
+        sort_by="self_cpu_time_total", row_limit=40))
+    log(f"ma2 bsl: {wall_ms!r} ms per step (wall), {per_step!r} device "
+        f"launches and {device_ms!r} device ms per step, so the device is "
+        f"busy {device_ms / wall_ms!r} of it; tables by device and by host "
+        f"time in build/profiles/profile_ma2_bsl{{,_host}}.txt")
+    log_top(events, us2, 2 * BSL_PROFILE_STEPS + 1)
+    host_us = sum(e.self_cpu_time_total for e in events)
+    n_profiled = 2 * BSL_PROFILE_STEPS + 1
+    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:5]:
+        per = e.self_cpu_time_total / 1e3 / n_profiled
+        log(f"  host, profiled: {per:.4f} ms/step "
+            f"({e.self_cpu_time_total / host_us:.3f}, {e.count} calls) "
+            f"{e.key[:60]}")
+
+    # tests/functional/test_bsl.py TestFusedBSL._run: fused against host
+    point = dict(sigma_proposals=np.diag([.05, .05]),
+                 params0=np.array([[.6, .2]]), burn_in=20, bar=False)
+    fused = make(4, None, 300).sample(120, fused=True, **point)
+    host = make(4, None, 300).sample(120, fused=False, **point)
+    gap = np.abs(fused.sample_means_array - host.sample_means_array)
+    log(f"ma2 bsl, 120 steps of 300: fused means "
+        f"{fused.sample_means_array.tolist()!r}, host "
+        f"{host.sample_means_array.tolist()!r}, |gap| {gap.tolist()!r} "
+        f"(< 0.15)")
+    check(bool(np.all(gap < 0.15)), "BSL: fused and host chains disagree")
+    unbiased = make(4, unbiased_likelihood(), 300).sample(
+        120, fused=True, **point)
+    check(bool(np.all(np.isfinite(unbiased.samples_array))),
+          "BSL: the unbiased fused chain is not finite")
+    robust = make(4, robust_likelihood("mean"), 300).sample(5, **point)
+    check(robust.samples_all["gamma"].shape == (5, 2)
+          and bool(np.all(np.isfinite(robust.samples_all["gamma"]))),
+          "BSL: the robust host chain")
+    log(f"ma2 bsl: unbiased fused means "
+        f"{unbiased.sample_means_array.tolist()!r}; robust ('mean') host "
+        f"chain of 5 steps, gammas finite")
+    return dict(seconds=dt, ms_per_step=wall_ms, n_steps=BSL_N,
+                n_sim=res.n_sim, means=means.tolist(),
+                acc_rate=res.acc_rate, launches=launches,
+                launches_per_step=per_step, device_ms_per_step=device_ms,
+                busy_share=device_ms / wall_ms, device=str(bsl.device),
+                fused_host_gap=gap.tolist())
+
+
 def phase_default_device():
     """The MA2 kernel graph with no ``device=`` anywhere and no backend set:
     the port's default, the current CUDA device, through K1."""
@@ -1004,6 +1174,7 @@ def main():
     main_path.update(phase_ma2_smc(device))
     adaptive.update(phase_adaptive_smc(device))
     phase_profile(device, main_path)
+    main_path["ma2 bsl"] = phase_bsl()
     default_device = phase_default_device()
 
     log(json.dumps({"main_path": main_path,

@@ -5,13 +5,16 @@ code is plain PyTorch on tensors with an explicit device and explicit
 ``torch.Generator`` streams, plus hand-written CUDA kernels where the JAX
 package had Pallas kernels.  It never imports JAX or ``elfi_tpu``.
 
-So far it covers rejection and SMC ABC: the model DSL, the per-batch
-program, the native backend, ``Rejection`` with its fused loop and the
-adaptive distance, ``SMC``, ``AdaptiveDistanceSMC`` and
-``AdaptiveThresholdSMC`` with the joint prior ``ModelPrior``, the
-Gaussian-mixture proposal and the density-ratio estimator, the top-N
-merge, the distance metrics, the MA2, g-and-k and Gaussian models, and the
-fused MA2 and g-and-k distance kernels.
+So far it covers rejection and SMC ABC and Bayesian synthetic
+likelihood: the model DSL, the per-batch program, the native backend,
+``Rejection`` with its fused loop and the adaptive distance, ``SMC``,
+``AdaptiveDistanceSMC`` and ``AdaptiveThresholdSMC`` with the joint prior
+``ModelPrior``, the Gaussian-mixture proposal and the density-ratio
+estimator, ``BSL`` (``ModelBased``; the host Metropolis-Hastings chain and
+a fused chain queued on the device; the synthetic-likelihood estimators
+and pre-sampling tools in ``methods.bsl``; ESS and R-hat in
+``methods.mcmc``), the top-N merge, the distance metrics, the MA2, g-and-k
+and Gaussian models, and the fused MA2 and g-and-k distance kernels.
 """
 
 from .model import (AdaptiveDistance, Constant, Distance,  # noqa: F401
@@ -20,7 +23,8 @@ from .ops.distributions import Distribution  # noqa: F401
 from .parallel import (NativeBackend, get_client, reset_client,  # noqa: F401
                        set_client)
 from .methods import (AdaptiveDistanceSMC,  # noqa: F401
-                      AdaptiveThresholdSMC, Rejection, Sample, SMC,
-                      SmcSample)
+                      AdaptiveThresholdSMC, BSL, BslSample, ModelBased,
+                      Rejection, Sample, SMC, SmcSample)
+from .methods import mcmc  # noqa: F401
 
 __version__ = "0.1.0"

@@ -11,11 +11,15 @@ from __future__ import annotations
 
 from math import ceil
 
+import numpy as np
+
+from ..compile.compiler import compile_program
 from ..model.model import ComputationContext, Model, NodeReference
 from ..parallel.backends import get_client, resolve_device
 from ..parallel.batches import BatchHandler
+from .utils import arr2d_to_batch, batch_to_arr2d
 
-__all__ = ["ParameterInference", "Sampler"]
+__all__ = ["ParameterInference", "Sampler", "ModelBased"]
 
 
 class ParameterInference:
@@ -177,6 +181,109 @@ class Sampler(ParameterInference):
         if hasattr(self, "discrepancy_name"):
             kwargs["discrepancy_name"] = self.discrepancy_name
         return kwargs
+
+
+class ModelBased(ParameterInference):
+    """Base for methods needing many simulations at the SAME parameter value
+    per round -- BSL and friends.
+
+    A round is ``n_sim_round`` simulations in batches of ``batch_size``
+    (default: the whole round in one batch).  The observed feature matrix
+    comes from the observed values of the program on the method's device;
+    each batch's features are copied to numpy, as in the JAX package, and
+    the round is processed on the host.
+    """
+
+    def __init__(self, model, n_sim_round, feature_names=None,
+                 batch_size=None, **kwargs):
+        self.n_sim_round = int(n_sim_round)
+        batch_size = batch_size or self.n_sim_round
+        if self.n_sim_round % batch_size:
+            raise ValueError("n_sim_round must be a multiple of batch_size")
+        model = model.model if isinstance(model, NodeReference) else model
+        if isinstance(feature_names, str):
+            feature_names = [feature_names]
+        self.feature_names = feature_names or self._get_summary_names(model)
+        if not self.feature_names:
+            raise ValueError("feature_names must include at least one item")
+        for node in self.feature_names:
+            if node not in model:
+                raise ValueError(f"Node {node!r} not found in the model")
+        output_names = model.parameter_names + self.feature_names
+        super().__init__(model, output_names, batch_size=batch_size, **kwargs)
+
+        observed = [np.asarray(self._observed_feature(n))
+                    for n in self.feature_names]
+        self.observed = np.column_stack([o.reshape(1, -1) for o in observed])
+        self.state["round"] = 0
+        self.state["n_sim_round"] = 0
+        self.simulated = np.zeros((self.n_sim_round, self.observed.size))
+
+    def _observed_feature(self, name):
+        prog = compile_program(self.model, (name,), device=self.device)
+        return prog.observed_value(name).cpu().numpy()
+
+    @staticmethod
+    def _get_summary_names(model):
+        from ..model.model import Summary
+        return [n for n in model.nodes
+                if isinstance(model[n], Summary) and not n.startswith("_")]
+
+    def _init_state(self):
+        self.state["n_batches"] = 0
+        self.state["n_sim"] = 0
+        self.state["round"] = 0
+        self.state["n_sim_round"] = 0
+
+    def set_objective(self, rounds):
+        self.objective["round"] = rounds
+        self.objective["n_batches"] = rounds * (self.n_sim_round
+                                                // self.batch_size)
+
+    def update(self, batch, batch_index):
+        super().update(batch, batch_index)
+        self._merge_batch(batch)
+        if self.state["n_sim_round"] == self.n_sim_round:
+            self._process_simulated()
+            self.state["round"] += 1
+            if self.state["round"] < self.objective["round"]:
+                self._init_round()
+
+    def _init_round(self):
+        self.state["n_sim_round"] = 0
+
+    def _process_simulated(self):
+        raise NotImplementedError
+
+    def prepare_new_batch(self, batch_index):
+        params = np.atleast_2d(self.current_params)
+        batch_params = np.repeat(params, self.batch_size, axis=0)
+        return arr2d_to_batch(batch_params, self.parameter_names)
+
+    @property
+    def current_params(self):
+        raise NotImplementedError
+
+    def infer(self, *args, **kwargs):
+        if self.state["round"] > 0:
+            self._init_round()
+        return super().infer(*args, **kwargs)
+
+    def _merge_batch(self, batch):
+        simulated = batch_to_arr2d(
+            {k: batch[k].cpu().numpy() for k in self.feature_names},
+            self.feature_names)
+        n_sim = self.state["n_sim_round"]
+        self.simulated[n_sim:n_sim + self.batch_size] = simulated
+        self.state["n_sim_round"] += self.batch_size
+
+    def _allow_submit(self, batch_index):
+        # a batch that starts a new round waits until the last round is in
+        starts_new_round = (batch_index * self.batch_size) \
+            % self.n_sim_round == 0
+        if starts_new_round and self.batches.has_pending:
+            return False
+        return super()._allow_submit(batch_index)
 
 
 class _ProgressBar:

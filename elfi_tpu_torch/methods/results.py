@@ -14,7 +14,7 @@ import numpy as np
 
 from .utils import compute_ess, normalize_weights, weighted_sample_quantile
 
-__all__ = ["ParameterInferenceResult", "Sample", "SmcSample"]
+__all__ = ["ParameterInferenceResult", "Sample", "SmcSample", "BslSample"]
 
 
 class ParameterInferenceResult:
@@ -180,3 +180,26 @@ class SmcSample(Sample):
         for i, pop in enumerate(self.populations):
             sys.stdout.write(f"Population {i}: "
                              + pop.parameter_summary_string())
+
+
+class BslSample(Sample):
+    """BSL MCMC result: the chain past ``burn_in`` as the sample, the
+    whole chain in ``samples_all``.  ``plot_traces`` waits for the
+    visualization slice."""
+
+    def __init__(self, method_name, samples_all, parameter_names, burn_in=0,
+                 **kwargs):
+        samples = {n: np.asarray(v)[burn_in:]
+                   for n, v in samples_all.items()}
+        super().__init__(method_name=method_name, outputs=samples,
+                         parameter_names=parameter_names, **kwargs)
+        self.samples_all = {n: np.asarray(v) for n, v in samples_all.items()}
+        self.burn_in = burn_in
+
+    def compute_ess(self):
+        """Effective sample size of each parameter's chain past the burn-in
+        (:func:`~elfi_tpu_torch.methods.mcmc.eff_sample_size` on the global
+        backend's device)."""
+        from .mcmc import eff_sample_size
+        return {n: float(eff_sample_size(np.asarray(v)[None]))
+                for n, v in self.samples.items()}

@@ -41,6 +41,11 @@ def _entry_points():
     yield "node.generate", lambda: m["d"].generate(8)
     yield "ModelPrior", lambda: et.ModelPrior(m).rvs(4, seed=0)
     yield "DensityRatioEstimation", lambda: DensityRatioEstimation(n=2)
+    yield "BSL", lambda: et.BSL(m, n_sim_round=8).sample(
+        3, sigma_proposals=np.eye(2) * 0.1, bar=False)
+    yield "estimate_whitening_matrix", lambda: \
+        et.methods.bsl.estimate_whitening_matrix(m, 8, [0.6, 0.2],
+                                                 ["S1", "S2"])
     # a draw with no generator lands on the global backend's device
     yield "norm.rvs", lambda: dists.norm.rvs(size=4)
     yield "uniform.rvs", lambda: dists.uniform.rvs(size=4)
