@@ -75,7 +75,22 @@ Phases, each of which raises on failure (exit code != 0):
    then the JAX package's ``TestFusedBSL`` point fused and on the host
    (means within 0.15), the unbiased estimator fused and the robust
    ('mean') host chain.
-15. The default device: ``Rejection(m["d"], batch_size=2**21,
+15. BOLFI at the JAX bench's Ricker point (``bench.py:_bench_bolfi_ricker``)
+   with no ``device=``: a rejection ground truth over 2**22 simulations
+   (batch 2**17, seed 9) within 0.25 SDs of the JAX package's means for the
+   same call; ``BOLFI(m["log_d"], initial_evidence=40, update_interval=20,
+   ...).fit(500)`` then ``sample(1000, n_chains=4)`` after a warm-up with
+   seed 2, timed with seed 1, its fused segments under
+   ``torch.cuda.set_sync_debug_mode("error")``, each posterior mean within
+   2 ground-truth SDs; one captured descent replayed per acquisition, refit
+   and fit; seed 1 twice equal; the fit and sample walls, launches and
+   device ms per acquisition, refit and NUTS iteration (profiles written),
+   the mean tree depth, ESS, R-hat and the busy share; one refit eager and
+   replayed, equal bit for bit; then the JAX accuracy gate's MA2 point
+   (seed 5, 24 -> 120 evidence, 4 x 1200 NUTS) within 0.15 of (0.6, 0.2),
+   the host loop to 40 with a finite threshold and ``x_min`` in the box,
+   and neither distance kernel launched.
+16. The default device: ``Rejection(m["d"], batch_size=2**21,
    seed=1).sample(1000, n_sim=8 * 2**21)`` on the MA2 kernel graph with no
    ``device=`` anywhere and no backend set must run on cuda:0 through K1.
 
@@ -98,6 +113,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -148,6 +164,32 @@ BSL_SAMPLE_KW = dict(sigma_proposals=np.diag([.05, .05]),
                      bar=False)
 BSL_GATE = 0.1
 BSL_PROFILE_STEPS = 20
+# BOLFI: the JAX bench's Ricker phase (bench.py:_bench_bolfi_ricker) and the
+# JAX accuracy gate's MA2 point (tests/functional/test_inference.py:88-105)
+RICKER_BOUNDS = {"t1": (3, 5), "t2": (0.05, 0.8), "t3": (4, 16)}
+RICKER_NOISE = {"t1": 0.01, "t2": 0.0015, "t3": 0.36}
+RICKER_FIT = dict(batch_size=1, initial_evidence=40, update_interval=20,
+                  bounds=RICKER_BOUNDS, acq_noise_var=RICKER_NOISE)
+RICKER_N_EVIDENCE = 500
+RICKER_N_SAMPLES = 1000
+RICKER_GT_BATCH = 2**17
+RICKER_GT_N_SIM = 2**22
+# Rejection ground truth of the JAX package for the same call, on the CPU:
+#   python -c 'import jax; jax.config.update("jax_platforms", "cpu");
+#   (bench.py's Ricker model m, observed series of key 4);
+#   gt = elfi.Rejection(m["d"], batch_size=2**17, seed=9).sample(
+#       2000, n_sim=2**22, bar=False)' -> means and population SDs
+RICKER_JAX_GT_MEANS = np.array([4.072978973388672, 0.41394490003585815,
+                                9.150758743286133])
+RICKER_JAX_GT_SDS = np.array([0.3053286075592041, 0.20189444720745087,
+                              0.8837023377418518])
+# the port's ground truth against the JAX package's, in JAX ground-truth SDs
+RICKER_GT_GATE = 0.25
+RICKER_GATE_SDS = 2.0
+BOLFI_MA2_FIT = dict(batch_size=1, initial_evidence=24, update_interval=12,
+                     bounds={"t1": (-2, 2), "t2": (-1, 1)}, acq_noise_var=0.1)
+BOLFI_MA2_GATE = 0.15
+NUTS_PROFILE_ITERS = 10
 
 # The card's rates for a kernel's bound, H100 SXM at its 1.98 GHz boost clock
 # over 132 SMs: HBM bytes per second; thread operations per second through
@@ -1022,6 +1064,324 @@ def phase_bsl():
                 fused_host_gap=gap.tolist())
 
 
+def ricker_bolfi_model():
+    """The JAX bench's Ricker model (``bench.py:_bench_bolfi_ricker``) on
+    the JAX package's observed series of key 4."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import ricker
+    m = et.Model(name="ricker_bolfi")
+    et.Prior("uniform", 3, 2, model=m, name="t1")
+    et.Prior("uniform", 0.05, 0.75, model=m, name="t2")
+    et.Prior("uniform", 4, 12, model=m, name="t3")
+    et.Simulator(partial(ricker.stochastic_ricker, n_obs=50),
+                 m["t1"], m["t2"], m["t3"], observed=ricker.bench_observed(),
+                 model=m, name="Ricker")
+    s1 = et.Summary(ricker.mean, m["Ricker"], model=m, name="Mean")
+    s2 = et.Summary(ricker.var, m["Ricker"], model=m, name="Var")
+    s3 = et.Summary(ricker.num_zeros, m["Ricker"], model=m, name="n0")
+    et.Discrepancy(ricker.chi_squared, s1, s2, s3, model=m, name="d")
+    et.Operation(torch.log, m["d"], model=m, name="log_d")
+    return m
+
+
+def profile_counts(prof):
+    """(host launch calls, device kernels, device microseconds) of a
+    profile: a graph replay is one launch call and runs many kernels."""
+    from torch.autograd import DeviceType
+    events, device_us = device_table(prof)
+    launch_calls = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+        "cudaMemsetAsync"))
+    kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    return launch_calls, kernels, device_us, events
+
+
+def profiled(fn):
+    """(fn's result, its profile), the card synchronised around it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def phase_bolfi():
+    """BOLFI at the JAX bench's Ricker point with no ``device=`` anywhere,
+    gated against a rejection ground truth; its walls, launches, device time
+    and busy share; one segment with no host sync; then the JAX accuracy
+    gate's MA2 point and the host loop."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods import bolfi as bolfi_mod
+    from elfi_tpu_torch.methods import mcmc
+    from elfi_tpu_torch.methods.bo import utils as bo_utils
+    from elfi_tpu_torch.models import ma2
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    et.reset_client()
+    k_before = (ma2_distance.launches, gnk_distance.launches)
+    m = ricker_bolfi_model()
+    names = ("t1", "t2", "t3")
+
+    t0 = time.perf_counter()
+    gt = et.Rejection(m["d"], batch_size=RICKER_GT_BATCH, seed=9).sample(
+        2000, n_sim=RICKER_GT_N_SIM, bar=False)
+    gt_s = time.perf_counter() - t0
+    gt_means = np.array([float(np.mean(gt.samples[k])) for k in names])
+    gt_sds = np.array([float(np.std(gt.samples[k])) for k in names])
+    gt_gap = np.abs(gt_means - RICKER_JAX_GT_MEANS) / RICKER_JAX_GT_SDS
+    log(f"ricker ground truth: rejection of {RICKER_GT_N_SIM} sims in "
+        f"{gt_s!r} s, means {gt_means.tolist()!r} sds {gt_sds.tolist()!r}; "
+        f"JAX means {RICKER_JAX_GT_MEANS.tolist()!r}, gap "
+        f"{gt_gap.tolist()!r} JAX SDs (< {RICKER_GT_GATE})")
+    check(bool(np.all(gt_gap < RICKER_GT_GATE)),
+          "Ricker: the port's ground truth is off the JAX package's")
+
+    def run(seed, guard=False):
+        """(sample, fit seconds, sample seconds, BOLFI, descents replayed
+        in the fused loop) of one bench run."""
+        bolfi = et.BOLFI(m["log_d"], seed=seed, **RICKER_FIT)
+        orig = bolfi_mod.BOLFI._fused_segment
+        if guard:
+            bolfi_mod.BOLFI._fused_segment = sync_guarded(orig)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            replays0 = bo_utils.replays
+            bolfi.fit(n_evidence=RICKER_N_EVIDENCE, bar=False)
+            replays = bo_utils.replays - replays0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        finally:
+            bolfi_mod.BOLFI._fused_segment = orig
+        res = bolfi.sample(RICKER_N_SAMPLES, n_chains=4, bar=False)
+        t2 = time.perf_counter()
+        log(f"ricker bolfi, seed {seed}: fit {t1 - t0!r} s, sample "
+            f"{t2 - t1!r} s")
+        return res, t1 - t0, t2 - t1, bolfi, replays
+
+    # the warm-up, with one segment and one refit profiled (each a replay
+    # of a captured descent): launches and device time per acquisition and
+    # per refit
+    # and the wall of the others (the card synchronised around each)
+    seg_prof, refit_prof = {}, {}
+    walls = dict(segments=0.0, seg_acq=0, refits=0.0, n_refits=0)
+    orig_segment = bolfi_mod.BOLFI._fused_segment
+    orig_loop_fns = bolfi_mod._make_gp_loop_fns
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def segment(self, select, sim_fn, u_to_params, Xc, yc, u, n, ts, betas):
+        def call():
+            return orig_segment(self, select, sim_fn, u_to_params, Xc, yc,
+                                u, n, ts, betas)
+        if seg_prof or ts.start == 0:
+            n, dt = timed(call)
+            if ts.start:
+                walls["segments"] += dt
+                walls["seg_acq"] += len(ts)
+            return n
+        seg_prof["n_acq"] = len(ts)
+        n, seg_prof["prof"] = profiled(call)
+        return n
+
+    def loop_fns(*a, **kw):
+        heuristic, u_to_params, init_fit, refit = orig_loop_fns(*a, **kw)
+
+        def refit_once(*args):
+            # the first refit captures its descent: profile the second
+            if "first_refit" not in walls:
+                u, walls["first_refit"] = timed(lambda: refit(*args))
+                return u
+            if refit_prof:
+                u, dt = timed(lambda: refit(*args))
+                walls["refits"] += dt
+                walls["n_refits"] += 1
+                return u
+            u, refit_prof["prof"] = profiled(lambda: refit(*args))
+            return u
+        return heuristic, u_to_params, init_fit, refit_once
+
+    bolfi_mod.BOLFI._fused_segment = segment
+    bolfi_mod._make_gp_loop_fns = loop_fns
+    try:
+        run(2)
+    finally:
+        bolfi_mod.BOLFI._fused_segment = orig_segment
+        bolfi_mod._make_gp_loop_fns = orig_loop_fns
+    acq_calls, acq_kernels, acq_us, acq_events = profile_counts(
+        seg_prof["prof"])
+    n_acq_prof = seg_prof["n_acq"]
+    refit_calls, refit_kernels, refit_us, refit_events = profile_counts(
+        refit_prof["prof"])
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "profile_bolfi_segment.txt").write_text(acq_events.table(
+        sort_by="self_device_time_total", row_limit=40))
+    (OUT_DIR / "profile_bolfi_refit.txt").write_text(refit_events.table(
+        sort_by="self_device_time_total", row_limit=40))
+
+    # the timed run, its segments under the sync guard
+    res, fit_s, sample_s, bolfi, replays = run(1, guard=True)
+    nuts_stats = dict(mcmc.stats)
+    means = res.sample_means_array
+    dev = np.abs(means - gt_means) / gt_sds
+    n_acq = RICKER_N_EVIDENCE - RICKER_FIT["initial_evidence"]
+    _, segments = bolfi_mod.refit_schedule(
+        RICKER_FIT["initial_evidence"], RICKER_N_EVIDENCE,
+        RICKER_FIT["update_interval"])
+    n_refits = sum(1 for s in segments if s[2])
+    iters = nuts_stats["iterations"]
+    mean_depth = nuts_stats["depth_sum"] / (nuts_stats["chains"] * iters)
+    check(bolfi.device == torch.device("cuda", 0),
+          f"BOLFI without device= ran on {bolfi.device}")
+    check(bolfi.target_model.n_evidence == RICKER_N_EVIDENCE,
+          "BOLFI: wrong evidence count")
+    check(res.chains.shape == (4, RICKER_N_SAMPLES, 3)
+          and bool(np.all(np.isfinite(res.chains))), "BOLFI: bad chains")
+    # one captured descent a step: each acquisition, the initial GP fit,
+    # each refit and the posterior's threshold
+    check(replays == n_acq + 1 + n_refits + 1, f"BOLFI: {replays} "
+          f"descents replayed for {n_acq} acquisitions and {n_refits} "
+          "refits")
+    ess = {k: float(v) for k, v in bolfi.ess.items()}
+    rhat = {k: float(v) for k, v in bolfi.rhat.items()}
+    log(f"ricker bolfi, seed 1: means {means.tolist()!r}, |mean - gt| "
+        f"{dev.tolist()!r} gt SDs (gate < {RICKER_GATE_SDS}); ESS {ess!r}, "
+        f"R-hat {rhat!r}; threshold {res.threshold!r}")
+    log(f"ricker bolfi: fit({RICKER_N_EVIDENCE}) {fit_s!r} s wall, "
+        f"sample({RICKER_N_SAMPLES}, n_chains=4) {sample_s!r} s wall; "
+        f"{n_acq} acquisitions, {n_refits} refits; segments ran under "
+        f"set_sync_debug_mode('error')")
+    check(bool(np.all(dev < RICKER_GATE_SDS)),
+          f"BOLFI Ricker gate failed: {means} against {gt_means}")
+
+    # NUTS launches and device time per iteration: two profiled runs of
+    # the timed posterior, differenced
+    post = bolfi.extract_posterior()
+    target, args = post.traceable_logpdf_args()
+    x0s = res.chains[:, -1, :]
+    widths = np.asarray([hi - lo for lo, hi in RICKER_BOUNDS.values()],
+                        np.float32)
+
+    def nuts_run(n_iter):
+        return mcmc.nuts_chains(n_iter, x0s, target, seed=1,
+                                target_args=args, scales=widths)
+    _, p1 = profiled(lambda: nuts_run(NUTS_PROFILE_ITERS))
+    s1 = dict(mcmc.stats)
+    _, p2 = profiled(lambda: nuts_run(2 * NUTS_PROFILE_ITERS))
+    s2 = dict(mcmc.stats)
+    c1, k1, us1, _ = profile_counts(p1)
+    c2, k2, us2, nuts_events = profile_counts(p2)
+    (OUT_DIR / "profile_bolfi_nuts.txt").write_text(nuts_events.table(
+        sort_by="self_device_time_total", row_limit=40))
+    it_calls = (c2 - c1) / NUTS_PROFILE_ITERS
+    it_kernels = (k2 - k1) / NUTS_PROFILE_ITERS
+    it_ms = (us2 - us1) / 1e3 / NUTS_PROFILE_ITERS
+    steps_per_it = (s2["steps"] - s1["steps"]) / NUTS_PROFILE_ITERS
+    kernels_per_step = (k2 - k1) / max(s2["steps"] - s1["steps"], 1)
+
+    acq_ms = acq_us / 1e3 / n_acq_prof
+    refit_ms = refit_us / 1e3
+    device_s = (n_acq * acq_ms + n_refits * refit_ms + iters * it_ms) / 1e3
+    busy = device_s / (fit_s + sample_s)
+    log(f"ricker bolfi, acquisition: {acq_calls / n_acq_prof!r} host launch "
+        f"calls, {acq_kernels / n_acq_prof!r} device kernels and "
+        f"{acq_ms!r} device ms each (one segment of {n_acq_prof}, profiled); "
+        f"refit: {refit_calls} launch calls, {refit_kernels} kernels, "
+        f"{refit_ms!r} device ms")
+    log(f"ricker bolfi, NUTS: {it_calls!r} host launch calls, "
+        f"{it_kernels!r} device kernels and {it_ms!r} device ms per "
+        f"iteration of 4 chains ({steps_per_it!r} steps of "
+        f"{kernels_per_step!r} kernels); mean tree depth {mean_depth!r}, "
+        f"{nuts_stats['leapfrogs'] / (4 * iters)!r} leapfrogs per chain "
+        f"iteration, {nuts_stats['steps']} steps, captured "
+        f"{nuts_stats['captured']}")
+    log(f"ricker bolfi: device busy {busy!r} of the timed run's wall "
+        f"({device_s!r} s of device time from the per-acquisition, "
+        f"per-refit and per-iteration profiles); tables in "
+        f"build/profiles/profile_bolfi_{{segment,refit,nuts}}.txt")
+    log_top(acq_events, acq_us, n_acq_prof)
+    log(f"ricker bolfi, warm-up walls (synchronised): "
+        f"{walls['segments'] / walls['seg_acq'] * 1e3!r} ms an acquisition "
+        f"over {walls['seg_acq']}, {walls['refits'] / walls['n_refits']!r} s "
+        f"a refit over {walls['n_refits']} (the first, which captures, "
+        f"{walls['first_refit']!r} s)")
+
+    # one refit at the full point, eager and replayed: the same result
+    gp = bolfi.target_model
+    Xp, yp, mask = gp._padded()
+    u0 = gp._log_param_vector().astype(np.float32)
+    starts = torch.as_tensor(np.vstack(
+        [u0] + [u0 + 0.5 * np.random.RandomState(i).randn(4)
+                for i in range(3)]).astype(np.float32), device=Xp.device)
+    shapes = torch.as_tensor(gp._prior_shapes, dtype=torch.float32,
+                             device=Xp.device)
+
+    def refit_call(capture):
+        return gp.fns.optimize_restarts_core(
+            starts, Xp, yp, mask, shapes, torch.tensor(0.1, device=Xp.device),
+            steps=120, const_params=gp._const_params(), capture=capture)
+    eager, eager_s = timed(lambda: refit_call(False))
+    replayed, replay_s = timed(lambda: refit_call(True))
+    check(all(torch.equal(a, b) for a, b in zip(eager, replayed)),
+          "BOLFI: the replayed refit differs from the eager one")
+    log(f"ricker bolfi, one refit of 4 restarts x 120 steps at cap 512: "
+        f"eager {eager_s!r} s, replayed {replay_s!r} s, equal bit for bit")
+    walls.update(refit_eager_s=eager_s, refit_replay_s=replay_s)
+
+    again, _, _, _, _ = run(1)
+    check(np.array_equal(again.chains, res.chains),
+          "BOLFI: two runs with seed 1 differ")
+
+    # the JAX accuracy gate's MA2 point, fused
+    m6 = ma2.get_model(seed_obs=SEED_OBS)
+    et.Operation(torch.log, m6["d"], model=m6, name="log_d")
+    t0 = time.perf_counter()
+    ma2_bolfi = et.BOLFI(m6["log_d"], seed=5, **BOLFI_MA2_FIT)
+    ma2_bolfi.fit(n_evidence=120, bar=False)
+    ma2_res = ma2_bolfi.sample(1200, n_chains=4, bar=False)
+    ma2_s = time.perf_counter() - t0
+    ma2_means = ma2_res.sample_means_array
+    ma2_err = np.abs(ma2_means - TRUE_PARAMS)
+    log(f"ma2 bolfi, seed 5: means {ma2_means.tolist()!r} |err| "
+        f"{ma2_err.tolist()!r} (gate < {BOLFI_MA2_GATE}) in {ma2_s!r} s")
+    check(bool(np.all(ma2_err < BOLFI_MA2_GATE)),
+          f"BOLFI MA2 gate failed: {ma2_means}")
+
+    # the host loop at the MA2 point
+    host = et.BOLFI(m6["log_d"], seed=5, **BOLFI_MA2_FIT)
+    host_post = host.fit(n_evidence=40, bar=False, fused=False)
+    x_min = host.extract_result().x_min
+    inside = all(lo <= float(x_min[k][0]) <= hi for k, (lo, hi) in
+                 BOLFI_MA2_FIT["bounds"].items())
+    log(f"ma2 bolfi, host loop to 40: threshold {host_post.threshold!r}, "
+        f"x_min {({k: float(v[0]) for k, v in x_min.items()})!r}")
+    check(np.isfinite(host_post.threshold) and inside,
+          "BOLFI host loop: bad threshold or x_min")
+    k_after = (ma2_distance.launches, gnk_distance.launches)
+    check(k_after == k_before, f"BOLFI launched a distance kernel: K1, K2 "
+          f"counts {k_before} before the phase, {k_after} after")
+    return dict(fit_s=fit_s, sample_s=sample_s, means=means.tolist(),
+                gt_means=gt_means.tolist(), gt_sds=gt_sds.tolist(),
+                gap_sds=dev.tolist(), ess=ess, rhat=rhat,
+                acq_launch_calls=acq_calls / n_acq_prof,
+                acq_kernels=acq_kernels / n_acq_prof, acq_device_ms=acq_ms,
+                refit_device_ms=refit_ms, refit_kernels=refit_kernels,
+                nuts_launch_calls_per_iter=it_calls,
+                nuts_kernels_per_iter=it_kernels,
+                nuts_device_ms_per_iter=it_ms, mean_tree_depth=mean_depth,
+                busy_share=busy, warmup_walls=walls,
+                ma2_means=ma2_means.tolist(),
+                ma2_seconds=ma2_s, device=str(bolfi.device))
+
+
 def phase_default_device():
     """The MA2 kernel graph with no ``device=`` anywhere and no backend set:
     the port's default, the current CUDA device, through K1."""
@@ -1175,6 +1535,7 @@ def main():
     adaptive.update(phase_adaptive_smc(device))
     phase_profile(device, main_path)
     main_path["ma2 bsl"] = phase_bsl()
+    main_path["ricker bolfi"] = phase_bolfi()
     default_device = phase_default_device()
 
     log(json.dumps({"main_path": main_path,

@@ -5,26 +5,32 @@ code is plain PyTorch on tensors with an explicit device and explicit
 ``torch.Generator`` streams, plus hand-written CUDA kernels where the JAX
 package had Pallas kernels.  It never imports JAX or ``elfi_tpu``.
 
-So far it covers rejection and SMC ABC and Bayesian synthetic
-likelihood: the model DSL, the per-batch program, the native backend,
+So far it covers rejection and SMC ABC, Bayesian synthetic likelihood and
+BOLFI: the model DSL, the per-batch program, the native backend,
 ``Rejection`` with its fused loop and the adaptive distance, ``SMC``,
 ``AdaptiveDistanceSMC`` and ``AdaptiveThresholdSMC`` with the joint prior
 ``ModelPrior``, the Gaussian-mixture proposal and the density-ratio
 estimator, ``BSL`` (``ModelBased``; the host Metropolis-Hastings chain and
 a fused chain queued on the device; the synthetic-likelihood estimators
 and pre-sampling tools in ``methods.bsl``; ESS and R-hat in
-``methods.mcmc``), the top-N merge, the distance metrics, the MA2, g-and-k
-and Gaussian models, and the fused MA2 and g-and-k distance kernels.
+``methods.mcmc``), ``BayesianOptimization`` and ``BOLFI`` (the GP
+surrogate ``GPRegression``, the LCBSC acquisition, the fused BO loop, the
+``BolfiPosterior`` and batched NUTS and Metropolis chains in
+``methods.mcmc``), the top-N merge, the distance metrics, the MA2, g-and-k,
+Gaussian and Ricker models, and the fused MA2 and g-and-k distance
+kernels.
 """
 
-from .model import (AdaptiveDistance, Constant, Distance,  # noqa: F401
-                    Model, ModelPrior, Operation, Prior, Simulator, Summary)
+from .model import (AdaptiveDistance, Constant, Discrepancy,  # noqa: F401
+                    Distance, Model, ModelPrior, Operation, Prior, Simulator,
+                    Summary)
 from .ops.distributions import Distribution  # noqa: F401
 from .parallel import (NativeBackend, get_client, reset_client,  # noqa: F401
                        set_client)
 from .methods import (AdaptiveDistanceSMC,  # noqa: F401
-                      AdaptiveThresholdSMC, BSL, BslSample, ModelBased,
-                      Rejection, Sample, SMC, SmcSample)
+                      AdaptiveThresholdSMC, BayesianOptimization, BOLFI,
+                      BolfiSample, BSL, BslSample, GPRegression, ModelBased,
+                      OptimizationResult, Rejection, Sample, SMC, SmcSample)
 from .methods import mcmc  # noqa: F401
 
 __version__ = "0.1.0"

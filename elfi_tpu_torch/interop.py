@@ -12,6 +12,9 @@ holder of weight vectors and Welford accumulators;
 port's node.  :func:`population_from_numpy` turns one round's population of
 a JAX ``SmcSample`` into a port ``Sample`` that can stand as
 ``SMC._populations[-1]``, the population the next round proposes from.
+:func:`gp_from_numpy` builds BOLFI's GP surrogate from a JAX
+``GPRegression``'s evidence and hyperparameters, so that both packages
+predict from the same surrogate.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_numpy_state", "adaptive_state_from_numpy",
-           "population_from_numpy"]
+           "population_from_numpy", "gp_from_numpy"]
 
 
 def from_numpy_state(d, device):
@@ -69,3 +72,23 @@ def population_from_numpy(outputs, weights, cov, parameter_names,
                  cov=np.array(cov, np.float64), **meta)
     pop.means = batch_to_arr2d(outputs, pop.parameter_names)
     return pop
+
+
+def gp_from_numpy(X, y, params, bounds, *, device, prior_shapes=None):
+    """A port ``GPRegression`` on ``device`` holding the evidence ``X`` (n,
+    d) and ``y`` (n,) and the hyperparameters ``params`` of a JAX
+    ``GPRegression`` (``gp.X``, ``gp.Y``, ``gp.params``, ``gp.bounds`` and
+    optionally ``gp._prior_shapes``, as numpy), factored as the JAX GP's
+    ``_refactor`` factors it."""
+    from .methods.bo.gp import GPRegression
+    X = np.asarray(X, np.float64)
+    gp = GPRegression([f"x{i}" for i in range(X.shape[1])], bounds=bounds,
+                      device=device)
+    gp._x = X.copy()
+    gp._y = np.asarray(y, np.float64).reshape(-1).copy()
+    gp.params = {k: np.array(v, np.float32) if np.ndim(v) else float(v)
+                 for k, v in params.items()}
+    if prior_shapes is not None:
+        gp._prior_shapes = np.array(prior_shapes, np.float64)
+    gp._refactor()
+    return gp

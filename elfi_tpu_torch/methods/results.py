@@ -14,7 +14,8 @@ import numpy as np
 
 from .utils import compute_ess, normalize_weights, weighted_sample_quantile
 
-__all__ = ["ParameterInferenceResult", "Sample", "SmcSample", "BslSample"]
+__all__ = ["ParameterInferenceResult", "OptimizationResult", "Sample",
+           "SmcSample", "BolfiSample", "BslSample"]
 
 
 class ParameterInferenceResult:
@@ -32,6 +33,14 @@ class ParameterInferenceResult:
         if item in meta:
             return meta[item]
         raise AttributeError(item)
+
+
+class OptimizationResult(ParameterInferenceResult):
+    """Result of an optimization run (reference ``results.py:55-70``)."""
+
+    def __init__(self, x_min, **kwargs):
+        super().__init__(**kwargs)
+        self.x_min = x_min
 
 
 class Sample(ParameterInferenceResult):
@@ -180,6 +189,23 @@ class SmcSample(Sample):
         for i, pop in enumerate(self.populations):
             sys.stdout.write(f"Population {i}: "
                              + pop.parameter_summary_string())
+
+
+class BolfiSample(Sample):
+    """BOLFI MCMC result: chains (n_chains, n_iters, dim), flattened past
+    the warm-up into the outputs (reference ``results.py:507-543``).
+    ``plot_traces`` waits for the visualization slice."""
+
+    def __init__(self, method_name, chains, parameter_names, warmup, **kwargs):
+        chains = np.asarray(chains)
+        n_chains, n_iters, dim = chains.shape
+        concat = chains[:, warmup:, :].reshape(-1, dim)
+        outputs = {n: concat[:, i] for i, n in enumerate(parameter_names)}
+        super().__init__(method_name=method_name, outputs=outputs,
+                         parameter_names=parameter_names, **kwargs)
+        self.chains = chains
+        self.warmup = warmup
+        self.n_chains = n_chains
 
 
 class BslSample(Sample):

@@ -18,7 +18,7 @@ import math
 
 import torch
 
-__all__ = ["Distribution", "uniform", "norm", "truncnorm",
+__all__ = ["Distribution", "uniform", "norm", "truncnorm", "expon",
            "multivariate_normal", "from_name"]
 
 
@@ -201,6 +201,35 @@ class truncnorm(Distribution):
         return _nan_outside_unit(q, val)
 
 
+class expon(Distribution):
+    """Exponential on ``[loc, inf)`` with mean ``loc + scale`` (scipy)."""
+    name = "expon"
+
+    @classmethod
+    def rvs(cls, loc=0.0, scale=1.0, size=1, generator=None):
+        shape = _draw_shape(size, loc, scale)
+        e = torch.empty(shape, device=draw_device(generator)).exponential_(
+            generator=generator)
+        return loc + scale * e
+
+    @classmethod
+    def logpdf(cls, x, loc=0.0, scale=1.0):
+        z = (torch.as_tensor(x) - loc) / scale
+        return torch.where(
+            z >= 0, -z - torch.log(torch.as_tensor(scale, dtype=z.dtype)),
+            -math.inf)
+
+    @classmethod
+    def cdf(cls, x, loc=0.0, scale=1.0):
+        z = (torch.as_tensor(x) - loc) / scale
+        return torch.where(z >= 0, -torch.expm1(-z), 0.0)
+
+    @classmethod
+    def ppf(cls, q, loc=0.0, scale=1.0):
+        q = torch.as_tensor(q)
+        return _nan_outside_unit(q, loc - scale * torch.log1p(-q))
+
+
 def solve_lower_rows(L, r):
     """``L^-1 r_i`` for every row ``r_i`` of ``r`` (..., d), as ``r @
     (L^-1).T``: one small triangular solve for the inverse, then a matmul.
@@ -245,7 +274,7 @@ class multivariate_normal(Distribution):
         return -0.5 * (d * math.log(2 * math.pi) + logdet + quad)
 
 
-_REGISTRY = {d.name: d for d in (uniform, norm, truncnorm,
+_REGISTRY = {d.name: d for d in (uniform, norm, truncnorm, expon,
                                  multivariate_normal)}
 _REGISTRY["normal"] = norm
 

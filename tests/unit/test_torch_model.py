@@ -93,13 +93,16 @@ def test_flat_namespace_is_the_slice():
              "AdaptiveDistance", "Operation", "Constant", "Distribution", "Rejection", "Sample",
              "NativeBackend", "get_client", "set_client", "reset_client",
              "SMC", "AdaptiveDistanceSMC", "AdaptiveThresholdSMC",
-             "SmcSample", "ModelPrior"}
+             "SmcSample", "ModelPrior", "Discrepancy", "BSL", "BslSample",
+             "BOLFI", "BayesianOptimization", "GPRegression", "BolfiSample",
+             "OptimizationResult"}
     public = {n for n in dir(et) if not n.startswith("_")}
     assert names <= public
     for name in names:
         assert getattr(et, name) is not None
     # no visualization, pools or other methods yet
-    assert not public & {"BOLFI", "OutputPool", "plot_discrepancy"}
+    assert not public & {"BOLFIRE", "ROMC", "OutputPool",
+                         "plot_discrepancy"}
 
 
 def test_import_leaves_jax_out():
@@ -108,7 +111,9 @@ def test_import_leaves_jax_out():
             "elfi_tpu_torch.models.gnk, elfi_tpu_torch.models.gnk_kernel, "
             "elfi_tpu_torch.models.bignk, elfi_tpu_torch.models.gauss, "
             "elfi_tpu_torch.model.extensions, "
-            "elfi_tpu_torch.methods.density_ratio_estimation; "
+            "elfi_tpu_torch.methods.density_ratio_estimation, "
+            "elfi_tpu_torch.models.ricker, elfi_tpu_torch.methods.bolfi, "
+            "elfi_tpu_torch.methods.posteriors, elfi_tpu_torch.ops.special; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'elfi_tpu.', 'jaxlib')) or "
             "m == 'elfi_tpu']; print(bad); sys.exit(1 if bad else 0)")

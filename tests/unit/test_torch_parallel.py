@@ -46,6 +46,15 @@ def _entry_points():
     yield "estimate_whitening_matrix", lambda: \
         et.methods.bsl.estimate_whitening_matrix(m, 8, [0.6, 0.2],
                                                  ["S1", "S2"])
+    bounds = {"t1": (-2, 2), "t2": (-1, 1)}
+    yield "BOLFI", lambda: et.BOLFI(m["d"], initial_evidence=4,
+                                    bounds=bounds).fit(6, bar=False)
+    yield "BayesianOptimization", lambda: et.BayesianOptimization(
+        m["d"], initial_evidence=4, bounds=bounds).infer(6, bar=False)
+    yield "GPRegression", lambda: et.GPRegression(["t1"]).update(
+        np.zeros((3, 1)), np.ones(3))
+    yield "mcmc.nuts_chains", lambda: et.mcmc.nuts_chains(
+        10, np.zeros((2, 1)), lambda x: -0.5 * (x ** 2).sum(-1))
     # a draw with no generator lands on the global backend's device
     yield "norm.rvs", lambda: dists.norm.rvs(size=4)
     yield "uniform.rvs", lambda: dists.uniform.rvs(size=4)
