@@ -90,7 +90,27 @@ Phases, each of which raises on failure (exit code != 0):
    (seed 5, 24 -> 120 evidence, 4 x 1200 NUTS) within 0.15 of (0.6, 0.2),
    the host loop to 40 with a finite threshold and ``x_min`` in the box,
    and neither distance kernel launched.
-16. The default device: ``Rejection(m["d"], batch_size=2**21,
+16. BOLFIRE at the JAX bench's g-and-k point (``bench.py:_bench_bolfire_gnk``)
+   with no ``device=``: a rejection ground truth over 2**20 simulations
+   (batch 2**14, seed 8) within (0.1, 0.1, 0.5, 0.05) of the JAX package's
+   means for the same call; ``BOLFIRE(m, n_training_data=2000,
+   feature_names=["ss_osq"], n_initial_evidence=40, update_interval=10,
+   acq_noise_var=0.25, ...).fit(200)`` then ``sample(1000, n_chains=4)``
+   after a warm-up with seed 2, timed with seed 1, its fused segments under
+   ``torch.cuda.set_sync_debug_mode("error")``, gated as the bench gates it
+   (A within 1.0 of the ground truth, A's posterior sd below 0.8 of the
+   prior's, every mean finite and in [0, 10]); seed 1 twice equal; the fit
+   and sample walls, launches, device and wall ms of the initial run, an
+   acquisition, a classifier round and a refit, and per NUTS iteration
+   (profiles written), the busy share; the JAX test points (g-and-k fused
+   and on the host, MA2 with its triangle prior) finite and in bounds with
+   12 classifier attributes; neither distance kernel launched.
+17. The variance acquisitions: BOLFI's host loop on MA2 from 10 to 25
+   evidence with each of ``MaxVar``, ``RandMaxVar`` and ``ExpIntVar``
+   (grid) through ``acquisition_method=``, with no ``device=``: the
+   evidence in the bounds, the GP finite and on the card, and the wall of
+   one more acquisition of each.
+18. The default device: ``Rejection(m["d"], batch_size=2**21,
    seed=1).sample(1000, n_sim=8 * 2**21)`` on the MA2 kernel graph with no
    ``device=`` anywhere and no backend set must run on cuda:0 through K1.
 
@@ -190,6 +210,27 @@ BOLFI_MA2_FIT = dict(batch_size=1, initial_evidence=24, update_interval=12,
                      bounds={"t1": (-2, 2), "t2": (-1, 1)}, acq_noise_var=0.1)
 BOLFI_MA2_GATE = 0.15
 NUTS_PROFILE_ITERS = 10
+# BOLFIRE: the JAX bench's g-and-k phase (bench.py:_bench_bolfire_gnk)
+BOLFIRE_FIT = dict(n_training_data=2000, batch_size=2000,
+                   feature_names=["ss_osq"],
+                   bounds={p: (0.0, 10.0) for p in GNK_NAMES},
+                   n_initial_evidence=40, update_interval=10,
+                   acq_noise_var=0.25)
+BOLFIRE_N_EVIDENCE = 200
+BOLFIRE_N_SAMPLES = 1000
+BOLFIRE_GT_BATCH = 2**14
+BOLFIRE_GT_N_SIM = 2**20
+# The JAX package's rejection ground truth for the same call
+# (bench.py:268-270: batch 2**14, 2**20 sims, 1000 samples, seed 8), as
+# BENCH_r05.json records it (gnk_bolfire, ground_truth_rejection_means)
+BOLFIRE_JAX_GT_MEANS = np.array([3.43, 1.498, 5.205, 0.525])
+# the bench's gate (bench.py:290-294): A within 1.0 of the ground truth and
+# A's posterior sd below 0.8 of the prior's
+BOLFIRE_A_GATE = 1.0
+BOLFIRE_SD_SHARE = 0.8
+BOLFIRE_PROFILE_ROUNDS = 10
+# the variance acquisitions: BOLFI's host loop on MA2 from 10 initial points
+VAR_ACQ_N_EVIDENCE = 25
 
 # The card's rates for a kernel's bound, H100 SXM at its 1.98 GHz boost clock
 # over 132 SMs: HBM bytes per second; thread operations per second through
@@ -1108,6 +1149,30 @@ def profiled(fn):
     return out, prof
 
 
+def nuts_per_iteration(target, args, x0s, widths, table):
+    """(host launch calls, device kernels, device ms, steps, kernels a
+    step) per NUTS iteration of all chains: two profiled runs of the target
+    from ``x0s``, of NUTS_PROFILE_ITERS and twice as many iterations,
+    differenced; the longer run's table goes to build/profiles/."""
+    from elfi_tpu_torch.methods import mcmc
+
+    def nuts_run(n_iter):
+        return mcmc.nuts_chains(n_iter, x0s, target, seed=1,
+                                target_args=args, scales=widths)
+    _, p1 = profiled(lambda: nuts_run(NUTS_PROFILE_ITERS))
+    s1 = dict(mcmc.stats)
+    _, p2 = profiled(lambda: nuts_run(2 * NUTS_PROFILE_ITERS))
+    s2 = dict(mcmc.stats)
+    c1, k1, us1, _ = profile_counts(p1)
+    c2, k2, us2, events = profile_counts(p2)
+    (OUT_DIR / f"{table}.txt").write_text(events.table(
+        sort_by="self_device_time_total", row_limit=40))
+    steps = s2["steps"] - s1["steps"]
+    return ((c2 - c1) / NUTS_PROFILE_ITERS, (k2 - k1) / NUTS_PROFILE_ITERS,
+            (us2 - us1) / 1e3 / NUTS_PROFILE_ITERS, steps / NUTS_PROFILE_ITERS,
+            (k2 - k1) / max(steps, 1))
+
+
 def phase_bolfi():
     """BOLFI at the JAX bench's Ricker point with no ``device=`` anywhere,
     gated against a rejection ground truth; its walls, launches, device time
@@ -1270,22 +1335,8 @@ def phase_bolfi():
     widths = np.asarray([hi - lo for lo, hi in RICKER_BOUNDS.values()],
                         np.float32)
 
-    def nuts_run(n_iter):
-        return mcmc.nuts_chains(n_iter, x0s, target, seed=1,
-                                target_args=args, scales=widths)
-    _, p1 = profiled(lambda: nuts_run(NUTS_PROFILE_ITERS))
-    s1 = dict(mcmc.stats)
-    _, p2 = profiled(lambda: nuts_run(2 * NUTS_PROFILE_ITERS))
-    s2 = dict(mcmc.stats)
-    c1, k1, us1, _ = profile_counts(p1)
-    c2, k2, us2, nuts_events = profile_counts(p2)
-    (OUT_DIR / "profile_bolfi_nuts.txt").write_text(nuts_events.table(
-        sort_by="self_device_time_total", row_limit=40))
-    it_calls = (c2 - c1) / NUTS_PROFILE_ITERS
-    it_kernels = (k2 - k1) / NUTS_PROFILE_ITERS
-    it_ms = (us2 - us1) / 1e3 / NUTS_PROFILE_ITERS
-    steps_per_it = (s2["steps"] - s1["steps"]) / NUTS_PROFILE_ITERS
-    kernels_per_step = (k2 - k1) / max(s2["steps"] - s1["steps"], 1)
+    it_calls, it_kernels, it_ms, steps_per_it, kernels_per_step = \
+        nuts_per_iteration(target, args, x0s, widths, "profile_bolfi_nuts")
 
     acq_ms = acq_us / 1e3 / n_acq_prof
     refit_ms = refit_us / 1e3
@@ -1380,6 +1431,293 @@ def phase_bolfi():
                 busy_share=busy, warmup_walls=walls,
                 ma2_means=ma2_means.tolist(),
                 ma2_seconds=ma2_s, device=str(bolfi.device))
+
+
+def bolfire_gnk_model():
+    """The JAX bench's g-and-k model with the squared-octile summary
+    (``bench.py:_bench_bolfire_gnk``)."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import gnk
+    m = gnk.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
+    et.Summary(gnk.ss_octile_sq, m["GNK"], model=m, name="ss_osq")
+    return m
+
+
+def check_bolfire_fit(name, bolfire, n, bounds):
+    """A fit of ``n`` rounds: finite evidence in the bounds and one set of
+    classifier attributes a round."""
+    gp = bolfire.target_model
+    lo = np.array([b[0] for b in bounds.values()])
+    hi = np.array([b[1] for b in bounds.values()])
+    check(gp.n_evidence == n and len(bolfire.classifier_attributes) == n,
+          f"{name}: {gp.n_evidence} evidence, "
+          f"{len(bolfire.classifier_attributes)} classifier attributes")
+    check(bool(np.all(np.isfinite(gp.X)) and np.all(np.isfinite(gp.Y))
+               and np.all((gp.X >= lo) & (gp.X <= hi))),
+          f"{name}: evidence not finite or outside the bounds")
+
+
+def phase_bolfire():
+    """BOLFIRE at the JAX bench's g-and-k point with no ``device=``
+    anywhere, gated as the bench gates it against a rejection ground truth;
+    its walls, launches and device time per classifier round, acquisition
+    and refit, and its busy share; the segments with no host sync; then
+    the JAX test points, fused and on the host."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods import bolfire as bolfire_mod
+    from elfi_tpu_torch.models import gnk, ma2
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.utils.rng import fold_in
+    et.reset_client()
+    k_before = (ma2_distance.launches, gnk_distance.launches)
+    m = bolfire_gnk_model()
+
+    t0 = time.perf_counter()
+    gt_m = gnk.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
+    gt = et.Rejection(gt_m["d"], batch_size=BOLFIRE_GT_BATCH, seed=8).sample(
+        1000, n_sim=BOLFIRE_GT_N_SIM, bar=False)
+    gt_s = time.perf_counter() - t0
+    gt_means = np.array([float(np.mean(gt.samples[k])) for k in GNK_NAMES])
+    gt_gap = np.abs(gt_means - BOLFIRE_JAX_GT_MEANS)
+    log(f"gnk bolfire ground truth: rejection of {BOLFIRE_GT_N_SIM} sims in "
+        f"{gt_s!r} s, means {gt_means.tolist()!r}; JAX means "
+        f"{BOLFIRE_JAX_GT_MEANS.tolist()!r}, |gap| {gt_gap.tolist()!r} "
+        f"(< {GNK_GATE.tolist()})")
+    check(bool(np.all(gt_gap < GNK_GATE)),
+          "BOLFIRE: the port's ground truth is off the JAX package's")
+
+    orig_programs = bolfire_mod._fused_bolfire_programs
+    orig_segment = bolfire_mod.BOLFIRE._fused_segment
+    seen = {}
+
+    def programs(*a, **kw):
+        # keep the warm-up's programs and state, to profile their parts
+        progs = orig_programs(*a, **kw)
+
+        def init_run(*args):
+            out = progs.init_run(*args)
+            seen["init_args"], seen["shapes"] = args, out[3]
+            return out
+        seen["progs"] = progs
+        return progs._replace(init_run=init_run)
+
+    def segment(self, progs, Xc, yc, u, n, ts, betas, marginal, obs, coefs):
+        seen["state"] = (Xc, yc, u, betas, marginal, obs)
+        return orig_segment(self, progs, Xc, yc, u, n, ts, betas, marginal,
+                            obs, coefs)
+
+    def run(seed, guard=False):
+        """(sample, construction s, fit s, sample s, BOLFIRE) of one bench
+        run."""
+        t0 = time.perf_counter()
+        bolfire = et.BOLFIRE(m, seed=seed, **BOLFIRE_FIT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if guard:
+            bolfire_mod.BOLFIRE._fused_segment = sync_guarded(orig_segment)
+        try:
+            bolfire.fit(n_evidence=BOLFIRE_N_EVIDENCE, bar=False)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finally:
+            bolfire_mod.BOLFIRE._fused_segment = orig_segment
+        res = bolfire.sample(BOLFIRE_N_SAMPLES, n_chains=4, bar=False)
+        t3 = time.perf_counter()
+        log(f"gnk bolfire, seed {seed}: construction {t1 - t0!r} s, fit "
+            f"{t2 - t1!r} s, sample {t3 - t2!r} s")
+        return res, t1 - t0, t2 - t1, t3 - t2, bolfire
+
+    bolfire_mod._fused_bolfire_programs = programs
+    bolfire_mod.BOLFIRE._fused_segment = segment
+    try:
+        run(2)
+    finally:
+        bolfire_mod._fused_bolfire_programs = orig_programs
+        bolfire_mod.BOLFIRE._fused_segment = orig_segment
+
+    # the parts of the warm-up's fit, each on its last state: the initial
+    # run, an acquisition, a classifier round and a refit
+    progs = seen["progs"]
+    Xc, yc, u, betas, marginal, obs = seen["state"]
+    n_init = BOLFIRE_FIT["n_initial_evidence"]
+    n_acq = BOLFIRE_N_EVIDENCE - n_init
+    n, t = BOLFIRE_N_EVIDENCE - 1, n_acq - 1
+    params = progs.u_to_params(u)
+    theta = progs.select(fold_in(2, 0x5EED), Xc, yc, n, params, t, betas[t])
+
+    def acquisition():
+        return progs.select(fold_in(2, 0x5EED), Xc, yc, n, params, t,
+                            betas[t])
+
+    def rounds():
+        for _ in range(BOLFIRE_PROFILE_ROUNDS):
+            progs.neg_log_ratio(progs.features_at(2, n_init + t, theta),
+                                marginal, obs)
+
+    def refit():
+        return progs.refit_run(2, Xc, yc, u, seen["shapes"], n, t)
+
+    parts = {}
+    for name, fn, count in (("init", lambda: progs.init_run(
+                                 *seen["init_args"]), 1),
+                            ("acquisition", acquisition, 1),
+                            ("round", rounds, BOLFIRE_PROFILE_ROUNDS),
+                            ("refit", refit, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / count
+        _, prof = profiled(fn)
+        calls, kernels, us, events = profile_counts(prof)
+        (OUT_DIR / f"profile_bolfire_{name}.txt").write_text(events.table(
+            sort_by="self_device_time_total", row_limit=40))
+        parts[name] = dict(launch_calls=calls / count,
+                           kernels=kernels / count,
+                           device_ms=us / 1e3 / count, wall_ms=wall_ms)
+        log(f"gnk bolfire, {name}: {calls / count!r} host launch calls, "
+            f"{kernels / count!r} device kernels, {us / 1e3 / count!r} "
+            f"device ms and {wall_ms!r} wall ms each (synchronised; table "
+            f"in build/profiles/profile_bolfire_{name}.txt)")
+        if name == "round":
+            log_top(events, us, count)
+
+    # the timed run, its segments under the sync guard
+    res, init_s, fit_s, sample_s, bolfire = run(1, guard=True)
+    check(bolfire.device == torch.device("cuda", 0),
+          f"BOLFIRE without device= ran on {bolfire.device}")
+    check_bolfire_fit("gnk bolfire", bolfire, BOLFIRE_N_EVIDENCE,
+                      BOLFIRE_FIT["bounds"])
+    check(res.chains.shape == (4, BOLFIRE_N_SAMPLES, 4)
+          and bool(np.all(np.isfinite(res.chains))), "BOLFIRE: bad chains")
+    means = res.sample_means_array
+    a_sd = float(np.std(np.ravel(res.samples["A"])))
+    prior_sd = 10.0 / math.sqrt(12.0)
+    _, segments = bolfire_mod.refit_schedule(
+        n_init, BOLFIRE_N_EVIDENCE, BOLFIRE_FIT["update_interval"])
+    n_refits = sum(1 for s in segments if s[2])
+    log(f"gnk bolfire, seed 1: means {means.tolist()!r} (ground truth "
+        f"{gt_means.tolist()!r}); |A - gt A| {abs(means[0] - gt_means[0])!r} "
+        f"(< {BOLFIRE_A_GATE}), A's sd {a_sd!r} (< {BOLFIRE_SD_SHARE} x the "
+        f"prior's {prior_sd!r}); fit({BOLFIRE_N_EVIDENCE}) {fit_s!r} s "
+        f"wall, sample({BOLFIRE_N_SAMPLES}, n_chains=4) {sample_s!r} s wall; "
+        f"{n_acq} acquisitions, {n_refits} refits; segments ran under "
+        "set_sync_debug_mode('error')")
+    check(abs(means[0] - gt_means[0]) < BOLFIRE_A_GATE
+          and a_sd < BOLFIRE_SD_SHARE * prior_sd
+          and bool(np.all(np.isfinite(means)))
+          and bool(np.all((means >= 0.0) & (means <= 10.0))),
+          f"BOLFIRE gate failed: means {means}, A's sd {a_sd}")
+
+    post = bolfire.extract_result()
+    target, args = post.traceable_logpdf_args()
+    widths = np.full(4, 10.0, np.float32)
+    it_calls, it_kernels, it_ms, steps_per_it, kernels_per_step = \
+        nuts_per_iteration(target, args, res.chains[:, -1, :], widths,
+                           "profile_bolfire_nuts")
+    device_s = (parts["init"]["device_ms"]
+                + n_acq * (parts["acquisition"]["device_ms"]
+                           + parts["round"]["device_ms"])
+                + n_refits * parts["refit"]["device_ms"]
+                + BOLFIRE_N_SAMPLES * it_ms) / 1e3
+    busy = device_s / (fit_s + sample_s)
+    log(f"gnk bolfire, NUTS: {it_calls!r} host launch calls, {it_kernels!r} "
+        f"device kernels and {it_ms!r} device ms per iteration of 4 chains "
+        f"({steps_per_it!r} steps of {kernels_per_step!r} kernels)")
+    log(f"gnk bolfire: device busy {busy!r} of the timed run's fit and "
+        f"sample walls ({device_s!r} s of device time from the profiled "
+        "parts)")
+
+    again = run(1)[0]
+    check(np.array_equal(again.chains, res.chains),
+          "BOLFIRE: two runs with seed 1 differ")
+
+    # the JAX package's test points: g-and-k fused and on the host, and
+    # MA2, whose triangle prior adds the cost and the prior-program draws
+    points = {}
+    for fused in (True, False):
+        small = et.BOLFIRE(gnk.get_model(n_obs=50, seed_obs=2),
+                           n_training_data=100, feature_names=["ss_order"],
+                           bounds=BOLFIRE_FIT["bounds"], n_initial_evidence=8,
+                           seed=5)
+        t0 = time.perf_counter()
+        small.fit(n_evidence=12, bar=False, fused=fused)
+        name = "gnk test point " + ("fused" if fused else "host")
+        points[name] = time.perf_counter() - t0
+        check_bolfire_fit(name, small, 12, BOLFIRE_FIT["bounds"])
+    ma2_bounds = {"t1": (-2, 2), "t2": (-1, 1)}
+    small = et.BOLFIRE(ma2.get_model(seed_obs=4), n_training_data=100,
+                       batch_size=100, bounds=ma2_bounds,
+                       n_initial_evidence=5, update_interval=5, seed=11)
+    check(small._fused_eligible() and small._fused_box() is None,
+          "BOLFIRE MA2: not the fused path with the prior cost")
+    t0 = time.perf_counter()
+    small.fit(n_evidence=12, bar=False)
+    points["ma2 test point fused"] = time.perf_counter() - t0
+    check_bolfire_fit("ma2 test point", small, 12, ma2_bounds)
+    check(bool(np.all(np.isfinite(small.prior.logpdf(
+        small.target_model.X)))), "BOLFIRE MA2: evidence outside the prior")
+    log(f"bolfire test points: fits of 12 rounds, finite, in bounds, 12 "
+        f"classifier attributes each; seconds {points!r}")
+
+    k_after = (ma2_distance.launches, gnk_distance.launches)
+    check(k_after == k_before, f"BOLFIRE launched a distance kernel: K1, "
+          f"K2 counts {k_before} before the phase, {k_after} after")
+    log(f"gnk bolfire: K1, K2 launch counts {k_after} before and after the "
+        "phase (neither launched)")
+    return dict(construction_s=init_s, fit_s=fit_s, sample_s=sample_s,
+                means=means.tolist(), gt_means=gt_means.tolist(),
+                a_sd=a_sd, parts=parts, nuts_launch_calls_per_iter=it_calls,
+                nuts_kernels_per_iter=it_kernels,
+                nuts_device_ms_per_iter=it_ms,
+                nuts_steps_per_iter=steps_per_it,
+                busy_share=busy, test_points_s=points,
+                device=str(bolfire.device))
+
+
+def phase_variance_acquisitions():
+    """BOLFI's host loop on MA2 with each variance acquisition through the
+    entry point, with no ``device=``: the acquired points in the bounds,
+    the GP finite, and the wall of one more acquisition of each."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods.bo import acquisition as acq_mod
+    from elfi_tpu_torch.models import ma2
+    et.reset_client()
+    m = ma2.get_model(seed_obs=SEED_OBS)
+    et.Operation(torch.log, m["d"], model=m, name="log_d")
+    bounds = BOLFI_MA2_FIT["bounds"]
+    out = {}
+    for cls_name in ("MaxVar", "RandMaxVar", "ExpIntVar"):
+        gp = et.GPRegression(["t1", "t2"], bounds=bounds)
+        acq = getattr(acq_mod, cls_name)(gp, prior=et.ModelPrior(m), seed=1)
+        bolfi = et.BOLFI(m["log_d"], batch_size=1, initial_evidence=10,
+                         update_interval=5, target_model=gp,
+                         acquisition_method=acq, seed=1)
+        t0 = time.perf_counter()
+        bolfi.fit(n_evidence=VAR_ACQ_N_EVIDENCE, bar=False)
+        fit_s = time.perf_counter() - t0
+        lo = np.array([b[0] for b in bounds.values()])
+        hi = np.array([b[1] for b in bounds.values()])
+        check(gp.n_evidence == VAR_ACQ_N_EVIDENCE
+              and bool(np.all(np.isfinite(gp.Y)))
+              and bool(np.all((gp.X >= lo) & (gp.X <= hi))),
+              f"{cls_name}: bad evidence after the fit")
+        check(gp._factor[0].device == torch.device("cuda", 0),
+              f"{cls_name}: the GP is on {gp._factor[0].device}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts = acq.acquire(1, t=VAR_ACQ_N_EVIDENCE - 10)
+        torch.cuda.synchronize()
+        acq_ms = (time.perf_counter() - t0) * 1e3
+        check(bool(np.all(np.isfinite(pts)) and np.all((pts >= lo)
+                                                       & (pts <= hi))),
+              f"{cls_name}: acquired {pts} outside the bounds")
+        log(f"variance acquisition {cls_name}: BOLFI host loop to "
+            f"{VAR_ACQ_N_EVIDENCE} in {fit_s!r} s, evidence in the bounds; "
+            f"one more acquisition {acq_ms!r} ms wall (synchronised)")
+        out[cls_name] = dict(fit_s=fit_s, acquisition_ms=acq_ms)
+    return out
 
 
 def phase_default_device():
@@ -1536,6 +1874,8 @@ def main():
     phase_profile(device, main_path)
     main_path["ma2 bsl"] = phase_bsl()
     main_path["ricker bolfi"] = phase_bolfi()
+    main_path["gnk bolfire"] = phase_bolfire()
+    main_path["variance acquisitions"] = phase_variance_acquisitions()
     default_device = phase_default_device()
 
     log(json.dumps({"main_path": main_path,

@@ -5,8 +5,8 @@ code is plain PyTorch on tensors with an explicit device and explicit
 ``torch.Generator`` streams, plus hand-written CUDA kernels where the JAX
 package had Pallas kernels.  It never imports JAX or ``elfi_tpu``.
 
-So far it covers rejection and SMC ABC, Bayesian synthetic likelihood and
-BOLFI: the model DSL, the per-batch program, the native backend,
+So far it covers rejection and SMC ABC, Bayesian synthetic likelihood,
+BOLFI and BOLFIRE: the model DSL, the per-batch program, the native backend,
 ``Rejection`` with its fused loop and the adaptive distance, ``SMC``,
 ``AdaptiveDistanceSMC`` and ``AdaptiveThresholdSMC`` with the joint prior
 ``ModelPrior``, the Gaussian-mixture proposal and the density-ratio
@@ -16,7 +16,10 @@ and pre-sampling tools in ``methods.bsl``; ESS and R-hat in
 ``methods.mcmc``), ``BayesianOptimization`` and ``BOLFI`` (the GP
 surrogate ``GPRegression``, the LCBSC acquisition, the fused BO loop, the
 ``BolfiPosterior`` and batched NUTS and Metropolis chains in
-``methods.mcmc``), the top-N merge, the distance metrics, the MA2, g-and-k,
+``methods.mcmc``; the variance acquisitions ``MaxVar``, ``RandMaxVar`` and
+``ExpIntVar``), ``BOLFIRE`` (the ratio classifiers ``LogisticRegression``
+and ``GPClassifier``, the fused classifier rounds, ``BolfirePosterior``),
+the top-N merge, the distance metrics, the MA2, g-and-k,
 Gaussian and Ricker models, and the fused MA2 and g-and-k distance
 kernels.
 """
@@ -29,8 +32,9 @@ from .parallel import (NativeBackend, get_client, reset_client,  # noqa: F401
                        set_client)
 from .methods import (AdaptiveDistanceSMC,  # noqa: F401
                       AdaptiveThresholdSMC, BayesianOptimization, BOLFI,
-                      BolfiSample, BSL, BslSample, GPRegression, ModelBased,
-                      OptimizationResult, Rejection, Sample, SMC, SmcSample)
+                      BOLFIRE, BolfireSample, BolfiSample, BSL, BslSample,
+                      GPRegression, ModelBased, OptimizationResult, Rejection,
+                      Sample, SMC, SmcSample)
 from .methods import mcmc  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 from .base import ModelBased, ParameterInference, Sampler  # noqa: F401
-from .results import (BolfiSample, BslSample,  # noqa: F401
+from .results import (BolfireSample, BolfiSample, BslSample,  # noqa: F401
                       OptimizationResult, ParameterInferenceResult, Sample,
                       SmcSample)
 from .samplers import (AdaptiveDistanceSMC,  # noqa: F401
@@ -7,6 +7,9 @@ from .samplers import (AdaptiveDistanceSMC,  # noqa: F401
 from . import mcmc  # noqa: F401
 from .bsl import BSL  # noqa: F401
 from .bolfi import BayesianOptimization, BOLFI  # noqa: F401
-from .posteriors import BolfiPosterior  # noqa: F401
+from .posteriors import BolfiPosterior, BolfirePosterior  # noqa: F401
 from .bo.gp import GPRegression  # noqa: F401
-from .bo.acquisition import LCBSC, UniformAcquisition  # noqa: F401
+from .bo.acquisition import (LCBSC, ExpIntVar, MaxVar,  # noqa: F401
+                             RandMaxVar, UniformAcquisition)
+from .bolfire import BOLFIRE  # noqa: F401
+from .classifier import GPClassifier, LogisticRegression  # noqa: F401

@@ -178,6 +178,7 @@ class GPFns:
 
     def __init__(self, kernel):
         self.kernel = kernel
+        self.cross_cov = kernel
         self.param_names = tuple(kernel.param_names) + ("noise",)
         names = self.param_names
         diag = getattr(kernel, "diag", None)

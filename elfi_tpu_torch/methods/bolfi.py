@@ -85,19 +85,26 @@ def refit_schedule(n_init, n_evidence, update_interval):
     return refit, segments
 
 
-def _make_theta_selector(sel_spec, device=None):
+def _make_theta_selector(sel_spec, cost_fn=None, device=None):
     """Theta selection of one fused LCBSC acquisition: masked GP factor ->
     batched Adam LCB descent -> epsilon-greedy uniform anchor ->
     truncated-normal acquisition noise.
 
     ``sel_spec = (cap, d, n_inits_acq, rng_off, lo, hi, noise_std,
     epsilon)`` with lo/hi/noise_std float tuples (noise_std ``None``: no
-    acquisition noise).  Returns ``select(rseed, Xc, yc, n, params, t,
-    beta)`` with the evidence count ``n`` and the step ``t`` host integers;
-    it queues its work on ``device`` and reads nothing back."""
+    acquisition noise).  ``cost_fn`` (rows (n, d) -> (n,), optional) is
+    added to the LCB objective: BOLFIRE's ``-log prior`` cost for a prior
+    that is not the bounds box.  Returns ``select(rseed, Xc, yc, n, params,
+    t, beta)`` with the evidence count ``n`` and the step ``t`` host
+    integers; it queues its work on ``device`` and reads nothing back."""
     cap, d, n_inits_acq, rng_off, lo_t, hi_t, noise_std_t, eps = sel_spec
     eps = float(eps)
     fns = make_gp_fns(rbf_bias_kernel)
+    if cost_fn is None:
+        objective = fns.neg_lcb_obj_inv
+    else:
+        def objective(theta, *args):
+            return fns.neg_lcb_obj_inv(theta, *args) + cost_fn(theta)
     lo_np = np.asarray(lo_t, np.float32)
     hi_np = np.asarray(hi_t, np.float32)
     lo = torch.as_tensor(lo_np, device=device)
@@ -119,7 +126,7 @@ def _make_theta_selector(sel_spec, device=None):
                        generator=generator(fold_in(rseed, rng_off + t),
                                            device))
         starts = lo + (hi - lo) * u
-        xs, fs = descend(fns.neg_lcb_obj_inv, starts, 150, lr, lo, hi,
+        xs, fs = descend(objective, starts, 150, lr, lo, hi,
                          (Xc, mask, Kinv, alpha, params, beta))
         best = torch.argmin(torch.where(torch.isfinite(fs), fs, math.inf))
         theta = xs.index_select(0, best.reshape(1))[0]

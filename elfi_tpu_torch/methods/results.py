@@ -15,7 +15,7 @@ import numpy as np
 from .utils import compute_ess, normalize_weights, weighted_sample_quantile
 
 __all__ = ["ParameterInferenceResult", "OptimizationResult", "Sample",
-           "SmcSample", "BolfiSample", "BslSample"]
+           "SmcSample", "BolfiSample", "BolfireSample", "BslSample"]
 
 
 class ParameterInferenceResult:
@@ -206,6 +206,11 @@ class BolfiSample(Sample):
         self.chains = chains
         self.warmup = warmup
         self.n_chains = n_chains
+
+
+class BolfireSample(BolfiSample):
+    """BOLFIRE MCMC result, laid out as :class:`BolfiSample` (reference
+    ``results.py:608-639``)."""
 
 
 class BslSample(Sample):

@@ -93,9 +93,10 @@ class uniform(Distribution):
     def logpdf(cls, x, loc=0.0, scale=1.0):
         x = torch.as_tensor(x)
         inside = (x >= loc) & (x <= loc + scale)
-        return torch.where(inside,
-                           -torch.log(torch.as_tensor(scale, dtype=x.dtype)),
-                           -math.inf)
+        # the density on x's device: torch.where would copy a host scalar
+        # tensor there, which a CUDA graph capture refuses
+        return torch.where(inside, torch.zeros_like(x) - torch.log(
+            torch.as_tensor(scale, dtype=x.dtype)), -math.inf)
 
     @classmethod
     def pdf(cls, x, loc=0.0, scale=1.0):

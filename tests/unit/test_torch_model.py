@@ -95,14 +95,16 @@ def test_flat_namespace_is_the_slice():
              "SMC", "AdaptiveDistanceSMC", "AdaptiveThresholdSMC",
              "SmcSample", "ModelPrior", "Discrepancy", "BSL", "BslSample",
              "BOLFI", "BayesianOptimization", "GPRegression", "BolfiSample",
-             "OptimizationResult"}
+             "OptimizationResult", "BOLFIRE", "BolfireSample"}
     public = {n for n in dir(et) if not n.startswith("_")}
     assert names <= public
     for name in names:
         assert getattr(et, name) is not None
     # no visualization, pools or other methods yet
-    assert not public & {"BOLFIRE", "ROMC", "OutputPool",
-                         "plot_discrepancy"}
+    assert not public & {"ROMC", "OutputPool", "plot_discrepancy"}
+    for name in ("LogisticRegression", "GPClassifier", "MaxVar", "RandMaxVar",
+                 "ExpIntVar", "BolfirePosterior", "BolfireSample", "BOLFIRE"):
+        assert getattr(et.methods, name) is not None
 
 
 def test_import_leaves_jax_out():
@@ -113,7 +115,9 @@ def test_import_leaves_jax_out():
             "elfi_tpu_torch.model.extensions, "
             "elfi_tpu_torch.methods.density_ratio_estimation, "
             "elfi_tpu_torch.models.ricker, elfi_tpu_torch.methods.bolfi, "
-            "elfi_tpu_torch.methods.posteriors, elfi_tpu_torch.ops.special; "
+            "elfi_tpu_torch.methods.posteriors, elfi_tpu_torch.ops.special, "
+            "elfi_tpu_torch.methods.bolfire, "
+            "elfi_tpu_torch.methods.classifier; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'elfi_tpu.', 'jaxlib')) or "
             "m == 'elfi_tpu']; print(bad); sys.exit(1 if bad else 0)")

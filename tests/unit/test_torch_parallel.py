@@ -49,6 +49,13 @@ def _entry_points():
     bounds = {"t1": (-2, 2), "t2": (-1, 1)}
     yield "BOLFI", lambda: et.BOLFI(m["d"], initial_evidence=4,
                                     bounds=bounds).fit(6, bar=False)
+    yield "BOLFIRE", lambda: et.BOLFIRE(m, n_training_data=8, bounds=bounds,
+                                      n_initial_evidence=2).fit(3, bar=False)
+    labels = np.array([1.0, 1.0, -1.0, -1.0])
+    yield "LogisticRegression", lambda: et.methods.LogisticRegression().fit(
+        np.eye(4, 2), labels)
+    yield "GPClassifier", lambda: et.methods.GPClassifier().fit(
+        np.eye(4, 2), labels)
     yield "BayesianOptimization", lambda: et.BayesianOptimization(
         m["d"], initial_evidence=4, bounds=bounds).infer(6, bar=False)
     yield "GPRegression", lambda: et.GPRegression(["t1"]).update(
