@@ -19,9 +19,10 @@ surrogate ``GPRegression``, the LCBSC acquisition, the fused BO loop, the
 ``methods.mcmc``; the variance acquisitions ``MaxVar``, ``RandMaxVar`` and
 ``ExpIntVar``), ``BOLFIRE`` (the ratio classifiers ``LogisticRegression``
 and ``GPClassifier``, the fused classifier rounds, ``BolfirePosterior``),
-the top-N merge, the distance metrics, the MA2, g-and-k,
-Gaussian and Ricker models, and the fused MA2 and g-and-k distance
-kernels.
+``ROMC`` (frozen-noise objectives as rows of one program, batched Adam
+solves, Hessians, line-search regions, ``RomcPosterior``), the top-N
+merge, the distance metrics, the MA2, g-and-k, Gaussian and Ricker
+models, and the fused MA2 and g-and-k distance kernels.
 """
 
 from .model import (AdaptiveDistance, Constant, Discrepancy,  # noqa: F401
@@ -33,8 +34,10 @@ from .parallel import (NativeBackend, get_client, reset_client,  # noqa: F401
 from .methods import (AdaptiveDistanceSMC,  # noqa: F401
                       AdaptiveThresholdSMC, BayesianOptimization, BOLFI,
                       BOLFIRE, BolfireSample, BolfiSample, BSL, BslSample,
-                      GPRegression, ModelBased, OptimizationResult, Rejection,
-                      Sample, SMC, SmcSample)
+                      GPRegression, ModelBased, NDimBoundingBox,
+                      OptimisationProblem, OptimizationResult, Rejection,
+                      ROMC, RomcPosterior, RomcSample, Sample, SMC,
+                      SmcSample)
 from .methods import mcmc  # noqa: F401
 
 __version__ = "0.1.0"

@@ -14,7 +14,9 @@ a JAX ``SmcSample`` into a port ``Sample`` that can stand as
 ``SMC._populations[-1]``, the population the next round proposes from.
 :func:`gp_from_numpy` builds BOLFI's GP surrogate from a JAX
 ``GPRegression``'s evidence and hyperparameters, so that both packages
-predict from the same surrogate.
+predict from the same surrogate.  :func:`romc_solutions_from_numpy`
+installs a JAX ``ROMC``'s solutions into a port ``ROMC``, so both build
+regions, local fits and the posterior from the same optima.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["from_numpy_state", "adaptive_state_from_numpy",
-           "population_from_numpy", "gp_from_numpy"]
+           "population_from_numpy", "gp_from_numpy",
+           "romc_solutions_from_numpy"]
 
 
 def from_numpy_state(d, device):
@@ -92,3 +95,25 @@ def gp_from_numpy(X, y, params, bounds, *, device, prior_shapes=None):
         gp._prior_shapes = np.array(prior_shapes, np.float64)
     gp._refactor()
     return gp
+
+
+def romc_solutions_from_numpy(romc, x_min, f_min, hess):
+    """Install solutions into the port ``ROMC`` ``romc`` after its
+    ``_define_objectives``: ``x_min`` (n1, D), ``f_min`` (n1,) and ``hess``
+    (n1, D, D), numpy, as the JAX package's problems hold them
+    (``p.result.x_min``, ``p.result.f_min``, ``p.result.hess_appr``).
+    Marks the problems solved as ``_solve_gradients`` does and returns
+    ``romc``."""
+    probs = romc.optim_problems
+    if probs is None:
+        raise ValueError("define the objectives first (_define_objectives)")
+    x_min = np.asarray(x_min, np.float64).reshape(len(probs), -1)
+    f_min = np.asarray(f_min, np.float64).reshape(len(probs))
+    hess = np.asarray(hess, np.float64).reshape(
+        len(probs), x_min.shape[1], x_min.shape[1])
+    solved = [p.set_solution(x_min[i].copy(), f_min[i], hess[i].copy())
+              for i, p in enumerate(probs)]
+    romc.inference_state["solved"] = solved
+    romc.inference_state["attempted"] = [True] * len(probs)
+    romc.inference_state["_has_solved_problems"] = True
+    return romc

@@ -1,7 +1,7 @@
 from .base import ModelBased, ParameterInference, Sampler  # noqa: F401
 from .results import (BolfireSample, BolfiSample, BslSample,  # noqa: F401
-                      OptimizationResult, ParameterInferenceResult, Sample,
-                      SmcSample)
+                      OptimizationResult, ParameterInferenceResult,
+                      RomcSample, Sample, SmcSample)
 from .samplers import (AdaptiveDistanceSMC,  # noqa: F401
                        AdaptiveThresholdSMC, Rejection, SMC)
 from . import mcmc  # noqa: F401
@@ -13,3 +13,5 @@ from .bo.acquisition import (LCBSC, ExpIntVar, MaxVar,  # noqa: F401
                              RandMaxVar, UniformAcquisition)
 from .bolfire import BOLFIRE  # noqa: F401
 from .classifier import GPClassifier, LogisticRegression  # noqa: F401
+from .romc import (ROMC, NDimBoundingBox,  # noqa: F401
+                   OptimisationProblem, RomcPosterior)

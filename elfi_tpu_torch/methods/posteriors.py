@@ -17,9 +17,11 @@ import torch
 from ..ops import special
 from .bo.gp import full_float32_matmul, value_and_grad
 from .bo.utils import minimize, minimize_traced
+# defined with ROMC; re-exported here, where the JAX package has it
+from .romc import RomcPosterior  # noqa: F401
 from .utils import flat_array_to_dict
 
-__all__ = ["BolfiPosterior", "BolfirePosterior"]
+__all__ = ["BolfiPosterior", "BolfirePosterior", "RomcPosterior"]
 
 
 def _bolfi_box_target_for(fns):

@@ -15,7 +15,8 @@ import numpy as np
 from .utils import compute_ess, normalize_weights, weighted_sample_quantile
 
 __all__ = ["ParameterInferenceResult", "OptimizationResult", "Sample",
-           "SmcSample", "BolfiSample", "BolfireSample", "BslSample"]
+           "SmcSample", "BolfiSample", "BolfireSample", "BslSample",
+           "RomcSample"]
 
 
 class ParameterInferenceResult:
@@ -234,3 +235,15 @@ class BslSample(Sample):
         from .mcmc import eff_sample_size
         return {n: float(eff_sample_size(np.asarray(v)[None]))
                 for n, v in self.samples.items()}
+
+
+class RomcSample(Sample):
+    """ROMC result (reference ``results.py:642-684``): the box points of
+    every region with their importance weights."""
+
+    def __init__(self, method_name, outputs, parameter_names,
+                 discrepancy_name, weights, **kwargs):
+        super().__init__(method_name=method_name, outputs=outputs,
+                         parameter_names=parameter_names,
+                         discrepancy_name=discrepancy_name, weights=weights,
+                         **kwargs)

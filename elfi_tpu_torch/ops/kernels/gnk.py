@@ -5,6 +5,8 @@ Counterpart of :func:`elfi_tpu.ops.pallas_kernels.gnk_distance`.  The
 wrapper launches the kernel for CUDA tensors and raises if it cannot; it
 runs the plain version only for CPU tensors.  ``gnk_distance.launches``
 counts the kernel launches, so a run can show it went through the kernel.
+The kernel has no backward, so ``gnk_distance`` gives no gradient on either
+device: on the CPU its plain version runs without autograd.
 """
 
 from __future__ import annotations
@@ -121,8 +123,10 @@ def gnk_distance(A, B, g, k, observed_sorted, n_obs=50, c=0.8, batch_size=1,
     params = (A, B, g, k)
     device = _check(params, observed_sorted, n_obs, batch_size)
     if device.type == "cpu":
-        return gnk_distance_reference(*params, observed_sorted, n_obs, c,
-                                      batch_size, generator=generator)
+        # the kernel has no backward, so neither has its plain version here
+        with torch.no_grad():
+            return gnk_distance_reference(*params, observed_sorted, n_obs, c,
+                                          batch_size, generator=generator)
     if generator is None:
         raise ValueError("on CUDA gnk_distance needs a generator: its "
                          "initial_seed() keys the kernel's Philox stream")

@@ -5,6 +5,8 @@ Counterpart of :func:`elfi_tpu.ops.pallas_kernels.ma2_distance`.  The
 wrapper launches the kernel for CUDA tensors and raises if it cannot; it
 runs the plain version only for CPU tensors.  ``ma2_distance.launches``
 counts the kernel launches, so a run can show it went through the kernel.
+The kernel has no backward, so ``ma2_distance`` gives no gradient on either
+device: on the CPU its plain version runs without autograd.
 """
 
 from __future__ import annotations
@@ -105,8 +107,10 @@ def ma2_distance(t1, t2, observed_autocovs, n_obs=100, batch_size=1,
     """
     device = _check(t1, t2, observed_autocovs, n_obs, batch_size)
     if device.type == "cpu":
-        return ma2_distance_reference(t1, t2, observed_autocovs, n_obs,
-                                      batch_size, generator=generator)
+        # the kernel has no backward, so neither has its plain version here
+        with torch.no_grad():
+            return ma2_distance_reference(t1, t2, observed_autocovs, n_obs,
+                                          batch_size, generator=generator)
     if generator is None:
         raise ValueError("on CUDA ma2_distance needs a generator: its "
                          "initial_seed() keys the kernel's Philox stream")

@@ -12,6 +12,8 @@ import elfi_tpu_torch as et
 from elfi_tpu_torch.methods.posteriors import BolfiPosterior
 from elfi_tpu_torch.models import ma2
 
+torch.set_num_threads(1)
+
 BOUNDS = {"t1": (-2, 2), "t2": (-1, 1)}
 
 

@@ -19,6 +19,8 @@ from elfi_tpu_torch.methods.bolfire import _prior_cost_fn
 from elfi_tpu_torch.methods.posteriors import BolfirePosterior
 from elfi_tpu_torch.models import gnk, ma2
 
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 MA2_BOUNDS = {"t1": (-2, 2), "t2": (-1, 1)}
 GNK_BOUNDS = {p: (0.0, 10.0) for p in ("A", "B", "g", "k")}

@@ -20,6 +20,8 @@ from elfi_tpu_torch.methods.bsl import (estimate_whitening_matrix,
 from elfi_tpu_torch.methods.bsl.pre_sample_methods import _simulate_features
 from elfi_tpu_torch.models import ma2
 
+torch.set_num_threads(1)
+
 TRUE = np.array([0.6, 0.2])
 
 

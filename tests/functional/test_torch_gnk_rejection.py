@@ -6,11 +6,14 @@ runs."""
 
 import numpy as np
 import pytest
+import torch
 
 import elfi_tpu as elfi
 import elfi_tpu_torch as et
 from elfi_tpu.models import gnk as jax_gnk
 from elfi_tpu_torch.models import bignk, gnk, gnk_kernel
+
+torch.set_num_threads(1)
 
 MODELS = {"plain": gnk, "kernel": gnk_kernel}
 NAMES = ["A", "B", "g", "k"]

@@ -14,6 +14,8 @@ import elfi_tpu_torch as et
 from elfi_tpu.models import ma2 as jax_ma2
 from elfi_tpu_torch.models import ma2, ma2_kernel
 
+torch.set_num_threads(1)
+
 TRUE = np.array([0.6, 0.2])
 MODELS = {"plain": ma2, "kernel": ma2_kernel}
 

@@ -20,6 +20,8 @@ from elfi_tpu_torch.models import gauss, ma2, ma2_kernel
 from elfi_tpu_torch.utils import get_sub_seed
 from elfi_tpu_torch.utils.rng import stream_seed
 
+torch.set_num_threads(1)
+
 TRUE = np.array([0.6, 0.2])
 
 

@@ -21,6 +21,8 @@ from elfi_tpu_torch.interop import gp_from_numpy
 from elfi_tpu_torch.methods.bo import acquisition as tacq
 from elfi_tpu_torch.models import ma2
 
+torch.set_num_threads(1)
+
 BOUNDS = [(-2.0, 2.0), (-1.0, 1.0)]
 CPU = torch.device("cpu")
 # float32 elementwise: the normal CDF and Owen's T quadrature

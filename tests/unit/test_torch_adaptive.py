@@ -19,6 +19,8 @@ from elfi_tpu_torch.compile.compiler import compile_program
 from elfi_tpu_torch.interop import adaptive_state_from_numpy
 from elfi_tpu_torch.models import gnk, ma2
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

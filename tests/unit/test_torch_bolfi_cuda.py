@@ -23,6 +23,8 @@ from elfi_tpu_torch.methods.bo.utils import descend
 from elfi_tpu_torch.methods.posteriors import BolfiPosterior
 from elfi_tpu_torch.models import ma2
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

@@ -24,6 +24,8 @@ from elfi_tpu_torch.methods.bo import acquisition as acq_mod
 from elfi_tpu_torch.methods.classifier import logreg_fit_core
 from elfi_tpu_torch.models import gnk, ma2
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

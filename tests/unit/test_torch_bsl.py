@@ -31,6 +31,8 @@ from elfi_tpu_torch.methods.bsl.gaussian_rank_corr import (gaussian_rank_corr,
                                                           p2P)
 from elfi_tpu_torch.models import ma2
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

@@ -15,6 +15,8 @@ from elfi_tpu_torch.compile.compiler import compile_program
 from elfi_tpu_torch.models import ma2
 from elfi_tpu_torch.utils.rng import _mix, fold_in, generator, stream_seed
 
+torch.set_num_threads(1)
+
 # float32 sums are taken in another order by the two frameworks
 RTOL, ATOL = 1e-5, 1e-6
 

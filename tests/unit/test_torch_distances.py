@@ -13,6 +13,8 @@ import elfi_tpu_torch as et
 from elfi_tpu.ops.distances import distance_op as jax_distance_op
 from elfi_tpu_torch.ops.distances import distance_op
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

@@ -18,6 +18,8 @@ import elfi_tpu_torch as et
 from elfi_tpu_torch.models import bignk, gnk, gnk_kernel
 from elfi_tpu_torch.ops.kernels.gnk import gnk_distance_reference
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

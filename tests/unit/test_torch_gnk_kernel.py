@@ -24,6 +24,8 @@ from elfi_tpu_torch.ops.kernels.gnk import (MAX_N_OBS, NETWORK_ROWS,
                                             gnk_distance_reference,
                                             gnk_sort_rows)
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

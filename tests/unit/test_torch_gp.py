@@ -29,6 +29,8 @@ from elfi_tpu_torch.methods.bo.acquisition import LCBSC
 from elfi_tpu_torch.methods.posteriors import BolfiPosterior
 from elfi_tpu_torch.ops import special as tspecial
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

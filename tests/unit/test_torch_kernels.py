@@ -23,6 +23,8 @@ from elfi_tpu_torch.ops.kernels.ma2 import (ma2_distance, ma2_distance_noise,
                                             ma2_distance_reference,
                                             philox_normals)
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

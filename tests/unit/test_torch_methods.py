@@ -5,11 +5,14 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from elfi_tpu.methods import results as jresults
 from elfi_tpu.methods import utils as jutils
 import elfi_tpu_torch as et
 from elfi_tpu_torch.methods import results, utils
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)

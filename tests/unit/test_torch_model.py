@@ -7,6 +7,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import elfi_tpu as elfi
 import elfi_tpu_torch as et
@@ -17,6 +18,8 @@ from elfi_tpu.utils import get_sub_seed as jax_get_sub_seed
 from elfi_tpu_torch.model.model import node_uid
 from elfi_tpu_torch.models import ma2, ma2_kernel
 from elfi_tpu_torch.utils import get_sub_seed
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)
@@ -95,15 +98,19 @@ def test_flat_namespace_is_the_slice():
              "SMC", "AdaptiveDistanceSMC", "AdaptiveThresholdSMC",
              "SmcSample", "ModelPrior", "Discrepancy", "BSL", "BslSample",
              "BOLFI", "BayesianOptimization", "GPRegression", "BolfiSample",
-             "OptimizationResult", "BOLFIRE", "BolfireSample"}
+             "OptimizationResult", "BOLFIRE", "BolfireSample", "ROMC",
+             "NDimBoundingBox", "OptimisationProblem", "RomcPosterior",
+             "RomcSample"}
     public = {n for n in dir(et) if not n.startswith("_")}
     assert names <= public
     for name in names:
         assert getattr(et, name) is not None
-    # no visualization, pools or other methods yet
-    assert not public & {"ROMC", "OutputPool", "plot_discrepancy"}
+    # no visualization, pools or model selection yet
+    assert not public & {"OutputPool", "plot_discrepancy", "compare_models"}
     for name in ("LogisticRegression", "GPClassifier", "MaxVar", "RandMaxVar",
-                 "ExpIntVar", "BolfirePosterior", "BolfireSample", "BOLFIRE"):
+                 "ExpIntVar", "BolfirePosterior", "BolfireSample", "BOLFIRE",
+                 "ROMC", "NDimBoundingBox", "OptimisationProblem",
+                 "RomcPosterior", "RomcSample"):
         assert getattr(et.methods, name) is not None
 
 
@@ -117,7 +124,8 @@ def test_import_leaves_jax_out():
             "elfi_tpu_torch.models.ricker, elfi_tpu_torch.methods.bolfi, "
             "elfi_tpu_torch.methods.posteriors, elfi_tpu_torch.ops.special, "
             "elfi_tpu_torch.methods.bolfire, "
-            "elfi_tpu_torch.methods.classifier; "
+            "elfi_tpu_torch.methods.classifier, "
+            "elfi_tpu_torch.methods.romc; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'elfi_tpu.', 'jaxlib')) or "
             "m == 'elfi_tpu']; print(bad); sys.exit(1 if bad else 0)")

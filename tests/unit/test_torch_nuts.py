@@ -10,6 +10,8 @@ import torch
 import elfi_tpu_torch as et
 from elfi_tpu_torch.methods import mcmc
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

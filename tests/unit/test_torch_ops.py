@@ -12,6 +12,8 @@ import elfi_tpu_torch as et
 from elfi_tpu_torch.models import ma2
 from elfi_tpu_torch.ops import distances, distributions
 
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

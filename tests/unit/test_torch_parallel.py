@@ -11,6 +11,8 @@ from elfi_tpu_torch.models import ma2
 from elfi_tpu_torch.ops import distributions as dists
 from elfi_tpu_torch.parallel import BatchHandler, NativeBackend
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():
@@ -51,6 +53,8 @@ def _entry_points():
                                     bounds=bounds).fit(6, bar=False)
     yield "BOLFIRE", lambda: et.BOLFIRE(m, n_training_data=8, bounds=bounds,
                                       n_initial_evidence=2).fit(3, bar=False)
+    yield "ROMC", lambda: et.ROMC(m["d"], bounds=bounds).solve_problems(
+        2, seed=1)
     labels = np.array([1.0, 1.0, -1.0, -1.0])
     yield "LogisticRegression", lambda: et.methods.LogisticRegression().fit(
         np.eye(4, 2), labels)

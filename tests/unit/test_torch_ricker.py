@@ -12,6 +12,8 @@ import elfi_tpu_torch as et
 from elfi_tpu_torch.models import ricker as tricker
 from elfi_tpu_torch.ops import distributions as tdists
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

@@ -28,6 +28,8 @@ from elfi_tpu_torch.model.extensions import ModelPrior
 from elfi_tpu_torch.models import gauss, ma2
 from elfi_tpu_torch.ops import distributions as dists
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():

@@ -16,6 +16,8 @@ import elfi_tpu_torch as et
 from elfi_tpu_torch.interop import from_numpy_state
 from elfi_tpu_torch.ops import topk
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _native_cpu_client():
