@@ -123,7 +123,26 @@ Phases, each of which raises on failure (exit code != 0):
    and per Hessian (tables written), and the busy share from them; the
    JAX accuracy gate's MA2 point within 0.1 of (0.6, 0.2);
    neither distance kernel launched.
-19. The default device: ``Rejection(m["d"], batch_size=2**21,
+19. The zoo, with no ``device=``: ``Rejection(m["d"], batch_size=...,
+   seed=1).sample(...)`` on each model at its ``get_model`` defaults, the
+   published sizes (AR(1), ARCH, M/G/1 and the stochastic volatility model
+   at 2**16 a batch over 2**18 simulations, Lorenz-96 at 2**16 over 2**17,
+   toad at 2**14 over 2**15, 256 samples each; Lotka-Volterra at 2**15 and
+   daycare at 2,048 (29 x 53 x 33), one batch and 64 samples; the scratch
+   assay on the host, two batches of 8).  Gates: (a) each device model's
+   summary statistics at its true parameters (N simulations) within 4
+   combined standard errors of the JAX package's means from the CPU; (b)
+   the cheap models' posterior means within 4 sqrt(sd_jax^2 + sd_port^2)
+   of the JAX package's mean for the same call, the sds over seeds 1-5 on
+   the CPU; (c) every sample finite and inside the prior; (d) neither
+   distance kernel launched.  Per model the wall, sims/s, a batch's device
+   ms and busy share, and for Lotka-Volterra and daycare the steps and the
+   launches and device ms per step (a short-horizon batch profiled).
+20. The host executor: a scipy prior, a device simulator, a host summary
+   and a device distance through ``Rejection`` (2**17 simulations, mean
+   within 0.1 of the observed 1.2) and ``Model.generate``; BDM with its C++
+   simulator built by ``ensure_executable`` into a temporary directory.
+21. The default device: ``Rejection(m["d"], batch_size=2**21,
    seed=1).sample(1000, n_sim=8 * 2**21)`` on the MA2 kernel graph with no
    ``device=`` anywhere and no backend set must run on cuda:0 through K1.
 
@@ -271,6 +290,74 @@ ROMC_PROFILE_STEPS = 10
 # 115-120): seed_obs 271, ROMC seed 7, n1 60 with seed 8, eps 0.1, n2 30
 # with seed 9, weighted means within 0.1 of (0.6, 0.2)
 ROMC_MA2 = dict(seeds=(7, 8, 9), n1=60, eps=0.1, n2=30, gate=0.1)
+
+# The zoo (phase 20): every model at its get_model defaults, the published
+# sizes.  Rejection batch per model; the cheap models run n_sim =
+# ZOO_N_SIM and keep N_SAMPLES = 256 (scripts/torch_zoo_reference.py), the
+# event-loop models one batch and 64 samples, the host models two batches.
+ZOO_BATCH = {"ar1": 2**16, "arch": 2**16, "mg1": 2**16,
+             "stochastic_volatility": 2**16, "lorenz": 2**16, "toad": 2**14,
+             "lotka_volterra": 2**15, "daycare": 2048, "scratch_assay": 8}
+ZOO_SEED = 1
+ZOO_GATE_SE = 4.0
+ZOO_GATE_SD = 4.0
+# Gate (a): the JAX package's mean and standard error of each gate
+# statistic (torch_zoo_reference.gate_stats) at the get_model true
+# parameters, from N_SUMMARY simulations on the CPU:
+#   python3 scripts/torch_zoo_reference.py summaries
+ZOO_JAX_SUMMARIES = {
+    "ar1": (
+        [-0.011788000354599482, 5.149075347044005],
+        [0.021839530757965648, 0.05059468516006834]),
+    "arch": (
+        [0.004150490718132005, 0.6886697802110575, 0.25824486047241635, 0.05392279500337338, 0.0005309294835456058, -0.015652501617950065, -0.008868210767566609, 0.023205170911347217, 0.002538392551148405, -0.002629319108041983, -0.0030749055650378665, 0.008617561337898039, 0.001530393817223974, -0.0008220684018479529, 0.0063282252483558565, 0.001165000970643204, 0.005233261082543239],
+        [0.003467459464049825, 0.0164611188293618, 0.004807950103168591, 0.004372216179338408, 0.00389033084439825, 0.0035783785577036455, 0.0032781729046079343, 0.0016271764607448465, 0.001269983719240754, 0.001134195434196873, 0.0010058414574977948, 0.0007018541437327649, 0.0005608923124331555, 0.0005162883672180355, 0.000550392070235564, 0.0003995517948174576, 0.0004151074944670952]),
+    "mg1": (
+        [1.7104035017546266, 2.2543686300050467, 2.770847002742812, 3.267002454958856, 3.7486943744588643, 4.217723822686821, 4.77674973080866, 5.670320576056838, 7.352561467792839, 10.503334959968925],
+        [0.008055546030642086, 0.010423210371269158, 0.011348144527350874, 0.012045017678661563, 0.012463091188696105, 0.013305327319041098, 0.019842259407198217, 0.034268648037111375, 0.052493092235128734, 0.07448990377974873]),
+    "stochastic_volatility": (
+        [4.5195082920836285, 0.3538995722888103],
+        [0.05650094898517376, 0.007788257075080845]),
+    "lorenz": (
+        [2.245976648526266, 10.890869132243097, 10.795031466521323, 1.1021167319850065, 1.769897200516425, 0.43407281394291886],
+        [0.002871142185389863, 0.009561439487866186, 0.009470940624707748, 0.007830471530802786, 0.008728168650763408, 0.007103957447763678]),
+    "toad": (
+        [977.7724609375, 50.6436348259449, 1.9324345675995573, 1.9808407904347405, 2.052614896092564, 2.15461145946756, 2.2945367672946304, 2.4895504924934357, 2.767532598460093, 3.191121926996857, 3.8928726254962385, 7.411795781925321, 849.072265625, 62.29971665516496, 2.185663890093565, 2.230232240865007, 2.304669932113029, 2.4074345105327666, 2.5459572509862483, 2.7326936218887568, 2.994687292026356, 3.375680306693539, 4.003969156648964, 7.403145795688033, 777.6279296875, 66.66552152857184, 2.2565378847066313, 2.302720056613907, 2.3826251460704952, 2.489874486811459, 2.6367716724053025, 2.835103778867051, 3.0972482811193913, 3.473383149364963, 4.0823760950006545, 7.3969278945587575, 701.0947265625, 67.41051433607936, 2.2688987725414336, 2.3178378944285214, 2.3935957732610404, 2.502558903535828, 2.65028580930084, 2.8486680353526026, 3.115049014100805, 3.4884204315021634, 4.101836099755019, 7.391362693626434],
+        [1.3195802602376012, 0.051884472953255906, 0.00241114678669423, 0.0024975918563835153, 0.0024731232429690683, 0.0025080168981900693, 0.002530704526161006, 0.002562563470811715, 0.0028501963378537, 0.00323802570157892, 0.003873524879511235, 0.023954970866390878, 1.3442349955165944, 0.07829406877096254, 0.0026458493747527163, 0.0026123270787992074, 0.002677097422986461, 0.0024972063330647716, 0.0026091666835024075, 0.0027913622129710014, 0.003038990251083764, 0.0032318297457331717, 0.00433822163004059, 0.024131189464680593, 1.3772133366523271, 0.09435809266981482, 0.0026151935998245494, 0.002689804934882911, 0.0027239060712011117, 0.002621896380418887, 0.00283558879120786, 0.0029343121550526197, 0.0031492007199767614, 0.0034028364109331753, 0.0043842082056397575, 0.024210142034677116, 1.2747720313767124, 0.09744238808626018, 0.0026663479027436137, 0.002705425649191088, 0.0027882754053674746, 0.002733180062608008, 0.00282816135792112, 0.0029596882820272217, 0.00324647431023071, 0.003416920040792981, 0.004484928381366479, 0.024374621209405232]),
+    "lotka_volterra": (
+        [118.0951560139656, 187.69795817136765, 9.288876093924046, 9.806665439158678, 0.817292618798092, 0.8490008544176817, 0.45551098976284266, 0.5274098652880639, 0.02919601711548836],
+        [0.7624819650500775, 0.9487179785027756, 0.03571036530954518, 0.035459301869535526, 0.001649668662255132, 0.0015629702556352496, 0.003040073624161616, 0.0030433833252668, 0.003848616555716694]),
+    "daycare": (
+        [2.7259451033354822, 18.63523706896551, 0.8672062144293612, 0.19284677676202175],
+        [0.001675261608244517, 0.02557895147475422, 0.0006451592134853718, 0.000831647986424468]),
+}
+# Gate (b): the JAX package's rejection posterior means at the smoke's
+# call (n_sim, 256 samples, the get_model observed data), the mean over
+# seeds 1-5 and the sd over them, and the port's sd over the same seeds on
+# the CPU (batch 2**14 on the CPU, the same call otherwise):
+#   python3 scripts/torch_zoo_reference.py rejection
+#   python3 scripts/torch_zoo_reference.py rejection --port
+# A model's means pass within ZOO_GATE_SD * sqrt(sd_jax^2 + sd_port^2).
+ZOO_JAX_REJECTION = {
+    "ar1": dict(mean=[0.6997177481651307],
+                  sd_jax=[0.008317752735945788],
+                  sd_port=[0.007235079702178458]),
+    "arch": dict(mean=[0.667242431640625, 0.7548308968544006],
+                   sd_jax=[0.011764815551492898, 0.010569300844755141],
+                   sd_port=[0.00892307017740959, 0.005875437468252606]),
+    "mg1": dict(mean=[2.3301762104034425, 2.302656078338623, 0.1772923231124878],
+                  sd_jax=[0.13670448545249886, 0.19369188730552017, 0.0011145658148814983],
+                  sd_port=[0.040815640643117455, 0.07193723229573011, 0.001539830364239384]),
+    "stochastic_volatility": dict(mean=[1.1645991325378418, 0.4511938691139221],
+                                    sd_jax=[0.017134473159322528, 0.01577893264650797],
+                                    sd_port=[0.008620200958370041, 0.016278315452658523]),
+    "lorenz": dict(mean=[1.8060012817382813, 0.1225844830274582],
+                     sd_jax=[0.03100314582243135, 0.004156745325269486],
+                     sd_port=[0.024525741437768585, 0.0031080939788180042]),
+    "toad": dict(mean=[1.6620054483413695, 43.42133255004883, 0.6155507802963257],
+                   sd_jax=[0.01953859267697256, 0.4654487514044549, 0.0024340760520443028],
+                   sd_port=[0.008969244370053366, 0.43261259692907084, 0.002890023742057926]),
+}
 
 # The card's rates for a kernel's bound, H100 SXM at its 1.98 GHz boost clock
 # over 132 SMs: HBM bytes per second; thread operations per second through
@@ -1991,6 +2078,238 @@ def phase_romc():
                 sections=sections, device=str(romc.device))
 
 
+def zoo_batch_profile(fn, steps_of=None):
+    """(device ms, kernels, host launch calls) of one call of ``fn``, and
+    for an event-loop model (``steps_of`` its ``last_run``) the same per
+    loop step."""
+    _, prof = profiled(fn)
+    calls, kernels, us, _ = profile_counts(prof)
+    out = dict(device_ms=us / 1e3, kernels=kernels, launch_calls=calls)
+    if steps_of is not None:
+        steps = steps_of["steps"]
+        out.update(steps=steps, kernels_per_step=kernels / steps,
+                   launch_calls_per_step=calls / steps,
+                   device_ms_per_step=us / 1e3 / steps)
+    return out
+
+
+def zoo_gate_summaries(name, m, device):
+    """Gate (a): the gate statistics' means over N_SUMMARY simulations at
+    the true parameters within ZOO_GATE_SE combined standard errors of the
+    JAX package's."""
+    from scripts.torch_zoo_reference import (N_SUMMARY, SIMULATOR,
+                                             TRUE_PARAMS, gate_stats,
+                                             summary_names)
+    n = N_SUMMARY[name]
+    with_values = {p: np.full(n, v, np.float32)
+                   for p, v in zip(m.parameter_names, TRUE_PARAMS[name])}
+    out = m.generate(n, outputs=[SIMULATOR[name]] + summary_names(m),
+                     with_values=with_values, seed=54321, device=device)
+    st = gate_stats(name, m, {k: np.asarray(v, np.float64)
+                              for k, v in out.items()}, np)
+    mean, se = st.mean(0), st.std(0, ddof=1) / np.sqrt(n)
+    jmean, jse = (np.asarray(v) for v in ZOO_JAX_SUMMARIES[name])
+    z = np.abs(mean - jmean) / np.sqrt(se ** 2 + jse ** 2)
+    check(bool(np.all(np.isfinite(st))), f"{name}: non-finite summaries")
+    check(float(z.max()) <= ZOO_GATE_SE,
+          f"{name}: gate (a) failed, the worst statistic is "
+          f"{float(z.max())!r} combined SEs from the JAX package's (column "
+          f"{int(z.argmax())}: {mean[z.argmax()]!r} against "
+          f"{jmean[z.argmax()]!r})")
+    return float(z.max())
+
+
+def zoo_check_samples(name, m, res):
+    """Gate (c): every sample finite and inside the prior's support."""
+    from elfi_tpu_torch import ModelPrior
+    x = res.samples_array
+    check(bool(np.all(np.isfinite(x))), f"{name}: non-finite samples")
+    lp = np.atleast_1d(ModelPrior(m).logpdf(x))
+    check(bool(np.all(np.isfinite(lp))),
+          f"{name}: {int(np.sum(~np.isfinite(lp)))} samples outside the "
+          "prior's support")
+
+
+def phase_zoo(device):
+    """Rejection on every device model of the zoo at its get_model
+    defaults, with no ``device=``: gates (a)-(d), and per model the wall,
+    simulations per second, a batch's device time and busy share, and for
+    the event-loop models the steps and the launches per step."""
+    import importlib
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.compile.compiler import compile_program
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from scripts.torch_zoo_reference import N_SAMPLES, N_SIM
+    et.reset_client()
+    k_before = (ma2_distance.launches, gnk_distance.launches)
+    results = {}
+    t_phase = time.perf_counter()
+    for name in ("ar1", "arch", "mg1", "stochastic_volatility", "lorenz",
+                 "toad", "lotka_volterra", "daycare", "scratch_assay"):
+        t_model = time.perf_counter()
+        mod = importlib.import_module(f"elfi_tpu_torch.models.{name}")
+        m = mod.get_model()
+        batch = ZOO_BATCH[name]
+        loop = getattr(mod, "last_run", None)
+        host = name == "scratch_assay"
+        if host:
+            n_sim, n_samples = 2 * batch, 4
+        elif loop is not None:
+            n_sim, n_samples = batch, 64
+        else:
+            n_sim, n_samples = N_SIM[name], N_SAMPLES
+        r = dict(batch=batch, n_sim=n_sim, n_samples=n_samples)
+        if not host:
+            r["gate_a_worst_se"] = zoo_gate_summaries(name, m, device)
+        rej = et.Rejection(m["d"], batch_size=batch, seed=ZOO_SEED)
+        check(rej.device == device, f"{name}: Rejection ran on {rej.device}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rej.sample(n_samples, n_sim=n_sim, bar=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        zoo_check_samples(name, m, res)
+        means = res.sample_means_array
+        r.update(wall_s=wall, sims_per_s=n_sim / wall,
+                 means=means.tolist())
+        if loop is not None:
+            r.update(steps=loop["steps"], host_reads=loop["checks"])
+        if name in ZOO_JAX_REJECTION:
+            ref = ZOO_JAX_REJECTION[name]
+            tol = ZOO_GATE_SD * np.hypot(ref["sd_jax"], ref["sd_port"])
+            err = np.abs(means - np.asarray(ref["mean"]))
+            r.update(gate_b_err=err.tolist(), gate_b_tol=tol.tolist())
+            check(bool(np.all(err <= tol)),
+                  f"{name}: gate (b) failed, posterior means "
+                  f"{means.tolist()!r} against the JAX package's "
+                  f"{ref['mean']!r}, |err| {err.tolist()!r} > tol "
+                  f"{tol.tolist()!r}")
+        if not host:
+            prog = compile_program(m, ("d",), device=device)
+
+            def one():
+                return prog.run(ZOO_SEED, 7, {}, batch)["d"]
+            if loop is not None:
+                # the rejection ran one batch: its wall is the batch's.  A
+                # batch runs up to 20,000-30,000 steps, too many events
+                # for the profiler: profile a short horizon (the same step
+                # at the same batch) and scale by the batch's steps
+                batch_ms = wall * 1e3
+                prof = zoo_batch_profile(zoo_short_run(name, mod, batch,
+                                                       device), loop)
+                dev = prof["device_ms_per_step"] * r["steps"]
+                r.update(step_profile=prof)
+            else:
+                one()                       # the timed call is the second
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                batch_ms = (time.perf_counter() - t0) * 1e3
+                prof = zoo_batch_profile(one)
+                dev = prof["device_ms"]
+                r.update(batch_kernels=prof["kernels"])
+            r.update(batch_wall_ms=batch_ms, batch_device_ms=dev,
+                     busy=dev / batch_ms)
+        r["seconds"] = time.perf_counter() - t_model
+        log(f"zoo {name}: {json.dumps(r)}")
+        results[name] = r
+    k_after = (ma2_distance.launches, gnk_distance.launches)
+    check(k_after == k_before, f"the zoo launched a distance kernel: K1, K2 "
+          f"counts {k_before} before the phase, {k_after} after")
+    log(f"zoo: gates (a)-(d) passed on {len(results)} models in "
+        f"{time.perf_counter() - t_phase!r} s; K1, K2 launch counts "
+        f"{k_after} before and after the phase")
+    return results
+
+
+def zoo_short_run(name, mod, batch, device):
+    """One batch of an event-loop model at its true parameters on a short
+    horizon, ending after its first host read: the step is the full
+    model's, at the full batch."""
+    g = torch.Generator(device=device)
+    if name == "daycare":
+        t = [torch.full((batch,), v, device=device) for v in (3.6, 0.6, 0.1)]
+        return lambda: mod.daycare(*t, time_end=0.01, batch_size=batch,
+                                   generator=g.manual_seed(5))
+    t = [torch.full((batch,), v, device=device)
+         for v in (1.0, 0.005, 0.6, 50., 100.)]
+    return lambda: mod.lotka_volterra(*t, n_obs=50, time_end=0.05,
+                                      batch_size=batch,
+                                      generator=g.manual_seed(5))
+
+
+def phase_host(device):
+    """The host executor on the card: a scipy prior, a device simulator, a
+    host summary after it and a device distance, through ``Rejection`` and
+    ``Model.generate``; then BDM, its C++ simulator built by
+    ``ensure_executable`` into a temporary directory."""
+    import os
+    import tempfile
+    import warnings
+    import scipy.stats as ss
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import bdm
+    et.reset_client()
+    m = et.Model(name="host_smoke")
+    et.Prior(ss.norm(1.0, 0.5), model=m, name="mu")
+    seen = {}
+
+    def sim(mu, batch_size=1, generator=None):
+        seen["sim"] = (mu.device, generator.device)
+        return mu[:, None] + torch.randn((batch_size, 8), generator=generator,
+                                         device=generator.device)
+
+    def host_mean(x):
+        seen["S"] = type(x)
+        return x.mean(1)
+
+    et.Simulator(sim, m["mu"], observed=np.full(8, 1.2, np.float32),
+                 model=m, name="sim")
+    et.Summary(host_mean, m["sim"], host=True, model=m, name="S")
+    et.Distance("euclidean", m["S"], model=m, name="d")
+    rej = et.Rejection(m["d"], batch_size=2**14, seed=3)
+    t0 = time.perf_counter()
+    res = rej.sample(256, n_sim=2**17, bar=False)
+    wall = time.perf_counter() - t0
+    mu = float(np.mean(res.samples["mu"]))
+    check(seen["sim"] == (device, device) and seen["S"] is np.ndarray,
+          f"the host graph's nodes ran as {seen}")
+    check(abs(mu - 1.2) < 0.1, f"scipy-prior rejection: mean {mu!r}, "
+          "expected 1.2 +- 0.1")
+    check(all(v.device == device for v in rej.state["samples"].values()),
+          "the host graph's merge did not run on the card")
+    gen = m.generate(64, outputs=["mu", "S", "d"], seed=4)
+    check(gen["S"].shape == (64,) and np.all(np.isfinite(gen["d"])),
+          "Model.generate on the host graph gave bad outputs")
+    log(f"host graph: scipy prior -> device simulator -> host summary on "
+        f"{device}: rejection of 2**17 sims in {wall!r} s, mean {mu!r}")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            os.chdir(tmp)
+            t0 = time.perf_counter()
+            exe = bdm.ensure_executable(tmp)
+            build = time.perf_counter() - t0
+            check(exe is not None, "g++ could not build bdm")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                mb = bdm.get_model()
+            t0 = time.perf_counter()
+            rb = et.Rejection(mb["d"], batch_size=16, seed=2).sample(
+                4, n_sim=32, bar=False)
+            bwall = time.perf_counter() - t0
+            zoo_check_samples("bdm", mb, rb)
+        finally:
+            os.chdir(cwd)
+    log(f"bdm: built by ensure_executable in {build!r} s, rejection of 32 "
+        f"sims in {bwall!r} s, alpha mean "
+        f"{float(np.mean(rb.samples['alpha']))!r}")
+    return dict(scipy_graph_wall_s=wall, scipy_graph_mean=mu,
+                bdm_build_s=build, bdm_wall_s=bwall)
+
+
 def phase_default_device():
     """The MA2 kernel graph with no ``device=`` anywhere and no backend set:
     the port's default, the current CUDA device, through K1."""
@@ -2148,6 +2467,8 @@ def main():
     main_path["gnk bolfire"] = phase_bolfire()
     main_path["variance acquisitions"] = phase_variance_acquisitions()
     main_path["romc gnk"] = phase_romc()
+    main_path["zoo"] = phase_zoo(device)
+    main_path["host"] = phase_host(device)
     default_device = phase_default_device()
 
     log(json.dumps({"main_path": main_path,

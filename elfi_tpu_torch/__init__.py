@@ -21,8 +21,12 @@ surrogate ``GPRegression``, the LCBSC acquisition, the fused BO loop, the
 and ``GPClassifier``, the fused classifier rounds, ``BolfirePosterior``),
 ``ROMC`` (frozen-noise objectives as rows of one program, batched Adam
 solves, Hessians, line-search regions, ``RomcPosterior``), the top-N
-merge, the distance metrics, the MA2, g-and-k, Gaussian and Ricker
-models, and the fused MA2 and g-and-k distance kernels.
+merge, the distance metrics, the host executor for graphs with
+``host=True`` nodes (scipy priors, numpy simulators, external commands
+through ``tools``), the model zoo (MA2, g-and-k, Gaussian, Ricker, AR(1),
+ARCH, M/G/1, stochastic volatility, Lorenz-96, toad, Lotka-Volterra,
+daycare, scratch assay and BDM), and the fused MA2 and g-and-k distance
+kernels.
 """
 
 from .model import (AdaptiveDistance, Constant, Discrepancy,  # noqa: F401
@@ -39,5 +43,9 @@ from .methods import (AdaptiveDistanceSMC,  # noqa: F401
                       ROMC, RomcPosterior, RomcSample, Sample, SMC,
                       SmcSample)
 from .methods import mcmc  # noqa: F401
+from .model import tools  # noqa: F401
+
+# the reference's name for the model container
+ElfiModel = Model
 
 __version__ = "0.1.0"

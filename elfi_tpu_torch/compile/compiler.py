@@ -17,6 +17,13 @@ asynchronous launch, so calling ``fn`` does not wait for the device.
   (:mod:`elfi_tpu_torch.utils.rng`).  ``generator.initial_seed()`` is that
   64-bit integer, for ops (such as the MA2 kernel) that seed their own
   generator with it.
+
+Graphs with ``host=True`` nodes (external simulators, numpy-only ops,
+scipy priors) run through :meth:`CompiledProgram.run_host`: the same walk,
+in which every other node still runs on the program's device and each host
+node gets numpy copies of its parents and a ``numpy.random.RandomState``
+seeded from its stream seed
+(:func:`~elfi_tpu_torch.ops.distributions.host_seed`).
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import numpy as np
 import torch
 
 from ..model.model import node_uid
-from ..utils import to_tensor
+from ..ops.distributions import host_seed
+from ..utils import to_numpy, to_tensor
 from ..utils.rng import generator, stream_seed
 
 __all__ = ["compile_program", "CompiledProgram"]
@@ -105,7 +113,10 @@ class CompiledProgram:
             val = st["value"]
         elif st["kind"] in ("summary", "operation") and not st.get("stochastic"):
             parents = [self.observed_value(p) for p in dag.parents(name)]
-            val = st["op"](*parents)
+            if st.get("host"):
+                val = self._to_device(st["op"](*map(to_numpy, parents)))
+            else:
+                val = st["op"](*parents)
         else:
             raise ValueError(
                 f"Cannot compute observed value for node {name!r}: no "
@@ -192,6 +203,81 @@ class CompiledProgram:
         self._traceables[batch_size] = fn
         return fn
 
+    # -- host execution (external / numpy simulators) ------------------------
+    def _to_device(self, x):
+        """A host node's numeric output as a tensor on the program's device
+        (float64 becomes float32, as everywhere in the port); anything
+        else is passed on as it is."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        if isinstance(x, (np.ndarray, np.generic)) and x.dtype.kind in "biuf":
+            return to_tensor(np.ascontiguousarray(x), self.device)
+        return x
+
+    def run_host(self, seed, batch_index, overrides, batch_size):
+        """Run the program eagerly, node by node.  A host node gets numpy
+        copies of its parents, moved off the card explicitly, and
+        ``random_state=RandomState(host_seed(stream))`` where a device node
+        gets ``generator=``; its numpy output goes back to the program's
+        device for the nodes after it.  Every output is a tensor on the
+        device when it is numeric."""
+        dag = self.model.dag
+        batch_index = int(batch_index)
+        meta = {"batch_index": batch_index, "batch_size": batch_size,
+                "model_name": self.model.name,
+                "submission_index": batch_index}
+        vals = {}
+        for name in self.order:
+            if name in self.override_names:
+                v = to_tensor(overrides[name], self.device)
+                # scalar overrides broadcast over the batch, as in the
+                # per-batch function: host ops index per batch member
+                vals[name] = v.expand(batch_size) if v.ndim == 0 else v
+                continue
+            st = dag.get_state(name)
+            kind = st["kind"]
+            host = st.get("host", False)
+            convert = to_numpy if host else self._to_device
+            parents = [convert(vals[p]) for p in dag.parents(name)]
+            stream = stream_seed(seed, batch_index, node_uid(name))
+            if host:
+                rkw = {"random_state": np.random.RandomState(
+                    host_seed(stream))}
+            else:
+                rkw = {"generator": generator(stream, self.device)}
+            if kind == "constant":
+                vals[name] = st["value"]
+            elif kind == "rv":
+                dist = st["distribution"]
+                size = st.get("size")
+                if size:
+                    total = batch_size * int(np.prod(size))
+                    draw = dist.rvs(*parents, size=total, **rkw)
+                    vals[name] = draw.reshape((batch_size,) + tuple(size))
+                else:
+                    vals[name] = dist.rvs(*parents, size=batch_size, **rkw)
+            elif kind in ("simulator", "summary", "operation",
+                          "discrepancy"):
+                kwargs = {}
+                if kind == "simulator" or st.get("stochastic"):
+                    kwargs.update(rkw)
+                if kind == "simulator" or st.get("uses_batch_size"):
+                    kwargs["batch_size"] = batch_size
+                if st.get("uses_meta"):
+                    kwargs["meta"] = meta
+                if kind == "discrepancy":
+                    kwargs["observed"] = tuple(
+                        convert(self.observed_value(p))
+                        for p in dag.parents(name))
+                try:
+                    vals[name] = st["op"](*parents, **kwargs)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"Executing node {name!r} failed: {e}") from e
+            else:
+                raise ValueError(f"Unknown node kind {kind!r} at {name!r}")
+        return {o: self._to_device(vals[o]) for o in self.outputs}
+
     # -- entry point -----------------------------------------------------------
     def run(self, seed, batch_index, overrides=None, batch_size=1):
         overrides = dict(overrides or {})
@@ -202,7 +288,5 @@ class CompiledProgram:
                 f"time (declared: {sorted(self.override_names)}); compile "
                 "with override_names including them")
         if self.host:
-            raise NotImplementedError(
-                "graphs with host=True nodes need the host executor, which "
-                "the PyTorch port does not have yet")
+            return self.run_host(seed, batch_index, overrides, batch_size)
         return self.traceable(batch_size)(seed, int(batch_index), overrides)

@@ -338,7 +338,8 @@ class SMC(Sampler):
             + (output_names or [])
         super().__init__(model, output_names, **kwargs)
         self._prior = ModelPrior(self.model, device=self.device)
-        self._prior_logpdf = self._prior.traceable_logpdf()
+        # with a host (scipy) prior, through numpy
+        self._prior_logpdf = self._prior.tensor_logpdf()
         self.discrepancy_name = discrepancy_name
         self.state["round"] = 0
         self._populations = []

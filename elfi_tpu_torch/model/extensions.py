@@ -4,8 +4,9 @@
 The prior sub-DAG is walked directly into ``rvs`` / ``logpdf`` /
 ``gradient_logpdf``: ``rvs`` runs the parameters' per-batch program, the
 density is a plain function on tensors, and the gradient comes from
-autograd.  Host (scipy-adapter) priors are not ported: a model with one
-raises when its ``ModelPrior`` is built.
+autograd.  A prior with host (scipy-adapter) distributions is evaluated
+eagerly in float64 numpy, its gradient by central differences, and has no
+``traceable_logpdf``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,12 +40,10 @@ class ModelPrior:
         self._order = dag.topological_order(self.parameter_names)
         self._states = {n: dag.get_state(n) for n in self._order}
         self._parents = {n: dag.parents(n) for n in self._order}
-        host = [n for n, st in self._states.items() if st.get("host")]
-        if host:
-            raise NotImplementedError(
-                f"prior nodes {host} are host (scipy-adapter) "
-                "distributions, which the PyTorch port does not have; use "
-                "an elfi_tpu_torch.Distribution subclass")
+        #: whether a parameter (or an ancestor) is a host distribution
+        self.host = any(
+            st["kind"] == "rv" and getattr(st["distribution"], "host", False)
+            for st in self._states.values())
 
     # -- sampling ---------------------------------------------------------------
     def rvs(self, size=1, seed=None, random_state=None):
@@ -99,7 +98,22 @@ class ModelPrior:
     def traceable_logpdf(self):
         """Function ``x (n, dim) tensor -> (n,)`` joint log-prior on
         ``x``'s device; named after the JAX package's method, it is what
-        the SMC proposal and weights evaluate on the device."""
+        the SMC proposal and weights evaluate on the device.  A prior with
+        host distributions has none (``ValueError``)."""
+        if self.host:
+            raise ValueError(
+                "The prior contains host-path (scipy-adapter) "
+                "distributions, which have no torch density. Use the "
+                "port's distributions (or an elfi_tpu_torch.Distribution "
+                "subclass) for methods that evaluate the prior on the "
+                "device.")
+        return self.tensor_logpdf()
+
+    def tensor_logpdf(self):
+        """Function ``x (n, dim) tensor -> (n,)`` joint log-prior on
+        ``x``'s device: :meth:`traceable_logpdf`, except that a host
+        distribution's density is evaluated in numpy on the way (so it has
+        no gradient and waits for the device)."""
         order, states, parents = self._order, self._states, self._parents
         pindex = {n: i for i, n in enumerate(self.parameter_names)}
 
@@ -117,8 +131,12 @@ class ModelPrior:
                             f"Prior density requires all stochastic ancestors "
                             f"of parameters to be parameters; {name!r} is not.")
                     xi = x[:, pindex[name]]
-                    logp = logp + st["distribution"].logpdf(
+                    lp = st["distribution"].logpdf(
                         xi, *(vals[p] for p in parents[name]))
+                    if not isinstance(lp, torch.Tensor):    # a host density
+                        lp = torch.as_tensor(lp, dtype=x.dtype,
+                                             device=x.device)
+                    logp = logp + lp
                     vals[name] = xi
                 elif kind in ("operation", "summary"):
                     vals[name] = st["op"](*(vals[p] for p in parents[name]))
@@ -134,20 +152,27 @@ class ModelPrior:
                                                 device=self.device))
 
     def logpdf(self, x):
-        """Joint log-prior of ``x`` (n, dim) as numpy float32; a single row
-        gives a scalar, as in the JAX package."""
-        x = self._as_x(x)
-        lp = self.traceable_logpdf()(x).cpu().numpy()
+        """Joint log-prior of ``x`` (n, dim) as numpy float32 (float64 for
+        a host prior); a single row gives a scalar, as in the JAX
+        package."""
+        x = torch.atleast_2d(torch.as_tensor(np.asarray(x, np.float64))) \
+            if self.host else self._as_x(x)
+        lp = self.tensor_logpdf()(x).cpu().numpy()
         return lp.squeeze() if x.shape[0] == 1 else lp
 
     def pdf(self, x):
         return np.exp(self.logpdf(x))
 
     def gradient_logpdf(self, x):
-        """(n, dim) gradient of the joint log-prior by autograd; zero (not
-        nan) outside the support, as in the reference."""
+        """(n, dim) gradient of the joint log-prior by autograd (a host
+        prior: central differences); zero (not nan) outside the support,
+        as in the reference."""
+        if self.host:
+            x = np.atleast_2d(np.asarray(x, np.float64))
+            g = np.stack([self.numerical_gradient_logpdf(row) for row in x])
+            return np.where(np.isfinite(g), g.reshape(x.shape), 0.0)
         x = self._as_x(x).requires_grad_(True)
-        lp = self.traceable_logpdf()(x).sum()
+        lp = self.tensor_logpdf()(x).sum()
         # a density that is constant in x (uniform priors) has no graph
         g = torch.autograd.grad(lp, x)[0] if lp.requires_grad \
             else torch.zeros_like(x)

@@ -221,6 +221,16 @@ class NodeReference:
     def parents(self):
         return [self.model[p] for p in self.model.dag.parents(self.name)]
 
+    @property
+    def uses_meta(self):
+        """Whether the node's op receives ``meta=`` (batch index, batch
+        size, model name, submission index)."""
+        return self.state.get("uses_meta", False)
+
+    @uses_meta.setter
+    def uses_meta(self, value):
+        self.model.update_node(self.name, uses_meta=bool(value))
+
     def generate(self, batch_size=1, with_values=None, seed=None,
                  device=None):
         out = self.model.generate(batch_size, outputs=[self.name],
@@ -249,13 +259,16 @@ class Operation(NodeReference):
     ``fn(*parents)`` by default; with ``stochastic=True`` it also receives
     ``generator=``, with ``uses_batch_size=True`` also ``batch_size=``, and
     with ``uses_meta=True`` also ``meta=`` (dict with ``batch_index`` etc.).
-    ``host=True`` marks a numpy-only function; the host executor that runs
-    such graphs is not ported yet.
+    ``host=True`` marks a numpy-only function (as does
+    :func:`~elfi_tpu_torch.model.tools.mark_host`): its graph then runs
+    through the host executor, which hands it numpy copies of its parents
+    and ``random_state=`` in place of ``generator=``.
     """
     kind = "operation"
 
     def __init__(self, fn, *parents, stochastic=False, uses_batch_size=False,
                  uses_meta=False, host=False, **kwargs):
+        host = host or getattr(fn, "_elfi_host", False)
         state = {"op": fn, "stochastic": stochastic,
                  "uses_batch_size": uses_batch_size, "uses_meta": uses_meta,
                  "host": host}
@@ -269,6 +282,10 @@ class RandomVariable(NodeReference):
     def __init__(self, distribution, *params, size=None, **kwargs):
         if isinstance(distribution, str):
             distribution = dists.from_name(distribution)
+        else:
+            # scipy (frozen or not) and other random_state-style objects
+            # get the host adapter; the port's own pass through
+            distribution = dists.wrap_if_foreign(distribution)
         state = {"distribution": distribution, "size": size,
                  "stochastic": True,
                  "host": bool(getattr(distribution, "host", False))}
@@ -289,10 +306,12 @@ class Prior(RandomVariable):
 
 class Simulator(NodeReference):
     """The stochastic simulator: ``fn(*params, batch_size=B, generator=g)``
-    returns a batch-first tensor on ``g``'s device."""
+    returns a batch-first tensor on ``g``'s device; with ``host=True``,
+    ``fn(*numpy_params, batch_size=B, random_state=rs)`` returns numpy."""
     kind = "simulator"
 
     def __init__(self, fn, *params, observed=None, host=False, **kwargs):
+        host = host or getattr(fn, "_elfi_host", False)
         state = {"op": fn, "stochastic": True, "observable": True,
                  "uses_batch_size": True, "host": host}
         super().__init__(*params, state=state, **kwargs)
@@ -309,6 +328,7 @@ class Summary(NodeReference):
     kind = "summary"
 
     def __init__(self, fn, *parents, host=False, **kwargs):
+        host = host or getattr(fn, "_elfi_host", False)
         state = {"op": fn, "observable": True, "host": host}
         super().__init__(*parents, state=state, **kwargs)
 
@@ -318,6 +338,7 @@ class Discrepancy(NodeReference):
     kind = "discrepancy"
 
     def __init__(self, fn, *parents, host=False, **kwargs):
+        host = host or getattr(fn, "_elfi_host", False)
         state = {"op": fn, "uses_observed": True, "host": host}
         super().__init__(*parents, state=state, **kwargs)
 

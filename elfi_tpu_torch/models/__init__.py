@@ -1,3 +1,4 @@
-"""Example models of the PyTorch port: MA2 and g-and-k (univariate and
-bivariate), each model with a CUDA kernel beside its plain graph, and the
-Gaussian models of the SMC bench phase."""
+"""Example model zoo of the PyTorch port (counterpart of
+:mod:`elfi_tpu.models`).  Each module exposes ``get_model(...) ->
+elfi_tpu_torch.Model``; MA2 and g-and-k also have a CUDA kernel graph
+(``ma2_kernel``, ``gnk_kernel``)."""

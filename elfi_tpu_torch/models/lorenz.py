@@ -1,0 +1,158 @@
+"""Stochastic Lorenz-96 model with parametrised closure in PyTorch (Wilks
+2005, Hakkarainen et al. 2012; counterpart of
+:mod:`elfi_tpu.models.lorenz`).
+
+The simulator is a draw of the closure noise followed by the pure
+transform :func:`forecast_lorenz_from_noise`: an eager loop of RK4 steps,
+each a few batched ops on the (batch, n_obs) state.  The observed
+trajectories are the JAX package's (``data/lorenz_observed.npz``)."""
+
+from __future__ import annotations
+
+from functools import partial
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..model.model import Distance, Model, Prior, Simulator, Summary
+from ._observed import load_observed_setting
+
+__all__ = ["forecast_lorenz", "forecast_lorenz_from_noise", "get_model",
+           "observed_data", "mean", "var", "cov", "xcov", "autocov"]
+
+_DATA = Path(__file__).resolve().parent / "data" / "lorenz_observed.npz"
+
+# default initial state of Hakkarainen et al. (2012), 40 sites
+_DEFAULT_INITIAL_STATE = np.array([
+    2.40711741e-01, 4.75597337e+00, 1.19145654e+01, 1.31324866e+00,
+    2.82675744e+00, 3.96016971e+00, 2.10479504e+00, 5.47742826e+00,
+    5.42519447e+00, -1.45166074e+00, 2.01991521e+00, 3.93873313e+00,
+    8.22837848e+00, 4.89401702e+00, -5.66278973e+00, 1.58617220e+00,
+    -1.23849251e+00, -6.04649288e-01, 6.04132264e+00, 7.47588536e+00,
+    1.82761402e+00, 3.19209639e+00, -7.58539653e-02, -6.00928508e-03,
+    4.52902964e-01, 3.22063602e+00, 7.18613523e+00, 2.39210634e+00,
+    -2.65743666e+00, 2.32046235e-01, 1.28079141e+00, 4.23344286e+00,
+    6.94213238e+00, -1.15939497e+00, -5.23037351e-01, 1.54618811e+00,
+    1.77863869e+00, 3.30139201e+00, 7.47769309e+00, -3.91312909e-01])
+
+
+def _lorenz_ode(y, eta, theta1, theta2, f):
+    """Lorenz-96 advection with the linear closure g = theta1 + theta2 y;
+    periodic neighbours by ``torch.roll``."""
+    y1 = torch.roll(y, 1, dims=1)
+    adv = -torch.roll(y, 2, dims=1) * y1 + y1 * torch.roll(y, -1, dims=1)
+    g = theta1 + y * theta2
+    return adv - y + f - g + eta
+
+
+def _rk4(y, time_step, eta, theta1, theta2, f):
+    ode = partial(_lorenz_ode, eta=eta, theta1=theta1, theta2=theta2, f=f)
+    k1 = time_step * ode(y)
+    k2 = time_step * ode(y + k1 / 2)
+    k3 = time_step * ode(y + k2 / 2)
+    k4 = time_step * ode(y + k3)
+    return y + (k1 + 2 * k2 + 2 * k3 + k4) / 6
+
+
+def forecast_lorenz_from_noise(theta1, theta2, es, f=10., phi=0.984,
+                               initial_state=None, total_duration=4):
+    """The stochastic Lorenz-96 trajectory on the closure noise ``es``
+    (n_timestep - 1, batch, n_obs); returns (batch, n_timestep, n_obs)."""
+    n_steps, batch_size, n_obs = es.shape
+    if initial_state is None:
+        initial_state = _DEFAULT_INITIAL_STATE[:n_obs]
+    device = es.device
+    y = torch.broadcast_to(torch.as_tensor(
+        np.asarray(initial_state, np.float32), device=device),
+        (batch_size, n_obs))
+    theta1 = torch.as_tensor(theta1, dtype=torch.float32,
+                             device=device).reshape(-1, 1)
+    theta2 = torch.as_tensor(theta2, dtype=torch.float32,
+                             device=device).reshape(-1, 1)
+    time_step = total_duration / (n_steps + 1)
+    # sqrt in float32, as jnp.sqrt of a Python float
+    root = float(np.sqrt(np.float32(1 - phi ** 2)))
+    eta = torch.zeros_like(y)
+    ys = [y]
+    for e in es:
+        eta = phi * eta + e * root
+        y = _rk4(y, time_step, eta, theta1, theta2, f)
+        ys.append(y)
+    return torch.stack(ys, dim=1)
+
+
+def forecast_lorenz(theta1=None, theta2=None, f=10., phi=0.984, n_obs=40,
+                    n_timestep=160, batch_size=1, initial_state=None,
+                    generator=None, total_duration=4):
+    """(batch, n_timestep, n_obs) trajectories on ``generator``'s
+    device."""
+    es = torch.randn((n_timestep - 1, batch_size, n_obs),
+                     generator=generator, device=generator.device)
+    return forecast_lorenz_from_noise(theta1, theta2, es, f, phi,
+                                      initial_state, total_duration)
+
+
+def mean(x):
+    return torch.mean(x, dim=(1, 2))
+
+
+def var(x):
+    return torch.mean(torch.var(x, dim=1, correction=0), dim=1)
+
+
+def cov(x):
+    x_next = torch.roll(x, -1, dims=2)
+    return torch.mean(torch.mean(
+        (x - torch.mean(x, dim=1, keepdim=True))
+        * (x_next - torch.mean(x_next, dim=1, keepdim=True)), dim=1), dim=1)
+
+
+def xcov(x, prev=True):
+    x_lag = torch.roll(x, 1 if prev else -1, dims=2)
+    a, b = x[:, :-1, :], x_lag[:, 1:, :]
+    return torch.mean((a - torch.mean(a, dim=1, keepdim=True))
+                      * (b - torch.mean(b, dim=1, keepdim=True)), dim=(1, 2))
+
+
+def autocov(x):
+    a, b = x[:, :-1, :], x[:, 1:, :]
+    return torch.mean((a - torch.mean(a, dim=1, keepdim=True))
+                      * (b - torch.mean(b, dim=1, keepdim=True)), dim=(1, 2))
+
+
+def observed_data(true_params=None, seed_obs=None, n_obs=40, f=10.,
+                  phi=0.984, total_duration=4, n_timestep=160):
+    """The JAX package's observed trajectory for this setting (the default
+    initial state only)."""
+    return load_observed_setting(
+        _DATA, true_params=true_params or [2.0, 0.1], seed_obs=seed_obs,
+        n_obs=n_obs, f=float(f), phi=float(phi),
+        total_duration=float(total_duration), n_timestep=n_timestep)
+
+
+def get_model(true_params=None, seed_obs=None, initial_state=None, n_obs=40,
+              f=10., phi=0.984, total_duration=4, n_timestep=160):
+    """Lorenz-96 closure-parameter inference model."""
+    if initial_state is not None:
+        raise ValueError("only the default initial state has stored "
+                         "observed data in the PyTorch port")
+    y_obs = observed_data(true_params, seed_obs, n_obs, f, phi,
+                          total_duration, n_timestep)
+    simulator = partial(forecast_lorenz, f=f, n_obs=n_obs, phi=phi,
+                        total_duration=total_duration, n_timestep=n_timestep)
+    m = Model(name="lorenz")
+    Prior("uniform", 0.5, 3., model=m, name="theta1")
+    Prior("uniform", 0, 0.3, model=m, name="theta2")
+    Simulator(simulator, m["theta1"], m["theta2"], observed=y_obs, model=m,
+              name="Lorenz")
+    ss = [Summary(mean, m["Lorenz"], model=m, name="Mean"),
+          Summary(var, m["Lorenz"], model=m, name="Var"),
+          Summary(autocov, m["Lorenz"], model=m, name="Autocov"),
+          Summary(cov, m["Lorenz"], model=m, name="Cov"),
+          Summary(partial(xcov, prev=True), m["Lorenz"], model=m,
+                  name="CrosscovPrev"),
+          Summary(partial(xcov, prev=False), m["Lorenz"], model=m,
+                  name="CrosscovNext")]
+    Distance("euclidean", *ss, model=m, name="d")
+    return m

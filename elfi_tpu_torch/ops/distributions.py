@@ -10,16 +10,38 @@ Conventions
 - Univariate distributions use scipy's ``loc``/``scale`` parameterisation.
 - Parameters may be Python scalars or per-batch tensors of shape
   ``(n, ...)`` (hierarchical priors, e.g. MA2's ``t2 | t1``).
+- Any ``scipy.stats`` distribution (or other ``random_state``-style object)
+  runs through :class:`ScipyHostDistribution`, a host adapter: its node is
+  marked ``host=True`` and draws with a ``numpy.random.RandomState`` seeded
+  by :func:`host_seed` from the node's stream seed.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 
+import numpy as np
 import torch
 
+from ..utils import to_numpy
+
 __all__ = ["Distribution", "uniform", "norm", "truncnorm", "expon",
-           "multivariate_normal", "from_name"]
+           "multivariate_normal", "levy_stable", "ScipyHostDistribution",
+           "wrap_if_foreign", "from_name", "host_seed"]
+
+
+def host_seed(stream):
+    """The 31-bit seed of a host ``RandomState`` for a node's stream:
+    ``stream`` is the node's 64-bit stream seed
+    (:func:`~elfi_tpu_torch.utils.rng.stream_seed`) or a generator seeded
+    with it.  The single definition of the convention: the compiler's host
+    executor and :class:`ScipyHostDistribution` must agree bit for bit, or
+    a host draw through ``program.run`` and a direct ``rvs(generator=...)``
+    would differ."""
+    if isinstance(stream, torch.Generator):
+        stream = stream.initial_seed()
+    return int(stream) & 0x7FFFFFFF
 
 
 def _shape(p):
@@ -275,18 +297,199 @@ class multivariate_normal(Distribution):
         return -0.5 * (d * math.log(2 * math.pi) + logdet + quad)
 
 
+class levy_stable(Distribution):
+    """Alpha-stable distribution sampled with the Chambers-Mallows-Stuck
+    transform in the S0 parameterization (scipy's ``levy_stable`` with
+    ``parameterization='S0'``), the JAX package's formula.  No closed-form
+    density: ``rvs`` only.
+
+    A draw is :meth:`draw` (the uniform angle ``U`` and the exponential
+    ``W``) followed by the pure :meth:`transform`, so that a test can feed
+    the transform the JAX package's own ``U`` and ``W``."""
+    name = "levy_stable"
+
+    #: ``U`` is uniform on ``(-pi/2 + 1e-6, pi/2 - 1e-6)``, as in the JAX
+    #: package, which keeps ``cos(U)`` away from 0
+    _U_LO = -math.pi / 2 + 1e-6
+    _U_HI = math.pi / 2 - 1e-6
+
+    @classmethod
+    def draw(cls, shape, generator=None):
+        """``(U, W)`` of ``shape`` from ``generator``."""
+        device = draw_device(generator)
+        u = torch.rand(shape, generator=generator, device=device)
+        u = cls._U_LO + (cls._U_HI - cls._U_LO) * u
+        w = torch.empty(shape, device=device).exponential_(
+            generator=generator)
+        return u, w
+
+    @staticmethod
+    def transform(U, W, alpha, beta=0.0, loc=0.0, scale=1.0):
+        """The Chambers-Mallows-Stuck transform of ``(U, W)``, shifted from
+        S1 to S0 so that ``loc`` is the S0 location.  Near ``alpha = 1``
+        ``tan(pi alpha / 2)`` blows up, in the JAX package alike."""
+        alpha = _f32(alpha, U.device)
+        beta = _f32(beta, U.device)
+        tan_term = beta * torch.tan(math.pi * alpha / 2)
+        B = torch.arctan(tan_term) / alpha
+        S = (1 + tan_term ** 2) ** (1 / (2 * alpha))
+        x1 = (S * torch.sin(alpha * (U + B)) / torch.cos(U) ** (1 / alpha)
+              * (torch.cos(U - alpha * (U + B)) / W)
+              ** ((1 - alpha) / alpha))
+        return loc + scale * (x1 - tan_term)
+
+    @classmethod
+    def rvs(cls, alpha, beta=0.0, loc=0.0, scale=1.0, size=1,
+            generator=None):
+        shape = _draw_shape(size, alpha, beta, loc, scale)
+        U, W = cls.draw(shape, generator)
+        return cls.transform(U, W, alpha, beta, loc, scale)
+
+
+class ScipyHostDistribution(Distribution):
+    """Host adapter around any ``scipy.stats`` distribution (or any object
+    with a ``random_state``-style ``rvs``).
+
+    A node built on it is marked ``host=True``, so its program runs through
+    the host executor (:meth:`CompiledProgram.run_host
+    <elfi_tpu_torch.compile.compiler.CompiledProgram.run_host>`), which
+    hands ``rvs`` a ``RandomState`` seeded by :func:`host_seed` from the
+    node's stream seed: a draw stays a function of (seed, batch, node).
+    Draws and densities are numpy arrays.  Methods that fuse the prior on
+    the device need torch distributions."""
+
+    host = True
+
+    def __init__(self, dist, name=None):
+        if isinstance(dist, str):
+            import scipy.stats as ss
+            obj = getattr(ss, dist, None)
+            if obj is None or not hasattr(obj, "rvs"):
+                raise ValueError(f"scipy.stats has no distribution {dist!r}")
+            name, dist = dist, obj
+        if not hasattr(dist, "rvs"):
+            raise ValueError(
+                f"{dist!r} cannot be used as a distribution: no rvs method")
+        self.scipy_dist = dist
+        self.name = name or getattr(dist, "name", None) \
+            or getattr(getattr(dist, "dist", None), "name", None) \
+            or type(dist).__name__
+        # does rvs take random_state?  From the signature when it can be
+        # read (None = unknown, settled at the first call): an rvs that
+        # cannot be seeded draws from the global numpy stream, seeded
+        # around the call (:meth:`rvs`), never unseeded
+        try:
+            params = inspect.signature(dist.rvs).parameters
+            self._rvs_seedable = True if "random_state" in params else None
+        except (TypeError, ValueError):
+            self._rvs_seedable = None
+
+    @staticmethod
+    def _random_state(generator=None, random_state=None):
+        if random_state is not None:
+            return random_state
+        if generator is not None:
+            return np.random.RandomState(host_seed(generator))
+        return np.random
+
+    def rvs(self, *params, size=1, generator=None, random_state=None):
+        """A numpy draw; ``random_state`` wins over ``generator``, whose
+        seed gives the ``RandomState`` (:func:`host_seed`); with neither,
+        numpy's global stream."""
+        rs = self._random_state(generator, random_state)
+        params = [to_numpy(p) for p in params]
+        if self._rvs_seedable is not False:
+            try:
+                out = self.scipy_dist.rvs(*params, size=size,
+                                          random_state=rs)
+                self._rvs_seedable = True
+                return out
+            except TypeError:
+                if self._rvs_seedable:
+                    raise    # rvs takes random_state: a real param error
+                self._rvs_seedable = False
+        # an rvs without random_state draws from the global numpy stream:
+        # seed it around the call and restore the caller's state, so the
+        # draw stays a function of the seed
+        if isinstance(rs, np.random.RandomState):
+            saved = np.random.get_state()
+            np.random.set_state(rs.get_state())
+            try:
+                return self.scipy_dist.rvs(*params, size=size)
+            finally:
+                np.random.set_state(saved)
+        return self.scipy_dist.rvs(*params, size=size)
+
+    def _delegate(self, method, x, *params):
+        fn = getattr(self.scipy_dist, method, None)
+        if fn is None and method in ("pdf", "logpdf"):   # discrete
+            fn = getattr(self.scipy_dist, method.replace("pdf", "pmf"), None)
+        if fn is None:
+            raise AttributeError(
+                f"{self.name} has no {method} (host scipy adapter)")
+        return fn(to_numpy(x), *(to_numpy(p) for p in params))
+
+    def pdf(self, x, *params):
+        return self._delegate("pdf", x, *params)
+
+    def logpdf(self, x, *params):
+        return self._delegate("logpdf", x, *params)
+
+    def cdf(self, x, *params):
+        return self._delegate("cdf", x, *params)
+
+    def ppf(self, q, *params):
+        return self._delegate("ppf", q, *params)
+
+    def gradient_logpdf(self, x, *params):
+        """3-point numerical gradient in float64: a host density has no
+        autograd."""
+        x = np.asarray(to_numpy(x), np.float64)
+        h = 1e-5 * np.maximum(np.abs(x), 1.0)
+        return ((self.logpdf(x + h, *params)
+                 - self.logpdf(x - h, *params)) / (2 * h))
+
+
+def wrap_if_foreign(distribution):
+    """Wrap scipy-style (``random_state``-driven) distribution objects in
+    the host adapter; the port's own distributions pass through.
+
+    Native means a :class:`Distribution` subclass or instance, or a
+    duck-typed object whose ``rvs`` declares a ``generator`` parameter.
+    Anything from ``scipy.*`` (frozen or not), and any other object with an
+    ``rvs``, goes through :class:`ScipyHostDistribution`."""
+    if isinstance(distribution, Distribution) or (
+            isinstance(distribution, type)
+            and issubclass(distribution, Distribution)):
+        return distribution
+    if not type(distribution).__module__.startswith("scipy."):
+        try:
+            if "generator" in inspect.signature(
+                    distribution.rvs).parameters:
+                return distribution
+        except (TypeError, ValueError, AttributeError):
+            pass
+    return ScipyHostDistribution(distribution)
+
+
 _REGISTRY = {d.name: d for d in (uniform, norm, truncnorm, expon,
-                                 multivariate_normal)}
+                                 multivariate_normal, levy_stable)}
 _REGISTRY["normal"] = norm
+_REGISTRY["exponential"] = expon
 
 
 def from_name(name):
-    """Resolve a distribution by scipy-style name.  Only the distributions
-    that the ported models use are here so far."""
+    """Resolve a distribution by scipy-style name: the port's own first,
+    then any ``scipy.stats`` distribution through the host adapter."""
     try:
         return _REGISTRY[name.lower()]
     except KeyError:
+        pass
+    try:
+        return ScipyHostDistribution(name)
+    except ValueError:
         raise ValueError(
-            f"Unknown distribution {name!r}: the PyTorch port has "
-            f"{sorted(_REGISTRY)}. Pass an elfi_tpu_torch.Distribution "
-            f"subclass for custom distributions.") from None
+            f"Unknown distribution {name!r}: not one of the port's "
+            f"{sorted(_REGISTRY)} and not a scipy.stats distribution. Pass "
+            f"an elfi_tpu_torch.Distribution subclass for custom "
+            f"distributions.") from None

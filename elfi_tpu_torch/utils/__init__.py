@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 __all__ = ["get_sub_seed", "random_seed", "is_array", "observed_name",
-           "to_tensor"]
+           "to_tensor", "to_numpy"]
 
 
 def get_sub_seed(seed, sub_seed_index, high=2**31):
@@ -38,3 +38,9 @@ def to_tensor(x, device):
     same numpy data gives the same dtypes in both packages."""
     t = torch.as_tensor(x, device=device)
     return t.to(torch.float32) if t.dtype == torch.float64 else t
+
+
+def to_numpy(x):
+    """A tensor as a numpy array, copied off the card explicitly (a CUDA
+    tensor has no ``__array__``); anything else is passed on as it is."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x

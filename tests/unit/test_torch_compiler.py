@@ -157,11 +157,19 @@ def test_meta_and_batch_size_injection():
 
 
 def test_host_graphs_not_ported_yet():
+    # the host executor is ported now: a host simulator gets numpy and a
+    # RandomState, and its output comes back as a tensor on the device
     m = et.Model()
     et.Prior("uniform", 0, 1, model=m, name="p")
-    et.Simulator(lambda p, batch_size, generator: p, m["p"], host=True,
-                 observed=np.zeros(1), model=m, name="sim")
+
+    def sim(p, batch_size, random_state):
+        assert isinstance(p, np.ndarray)
+        assert isinstance(random_state, np.random.RandomState)
+        return p
+
+    et.Simulator(sim, m["p"], host=True, observed=np.zeros(1), model=m,
+                 name="sim")
     prog = compile_program(m, ("sim",), device="cpu")
     assert prog.host
-    with pytest.raises(NotImplementedError):
-        prog.run(0, 0, batch_size=2)
+    out = prog.run(0, 0, batch_size=2)["sim"]
+    assert isinstance(out, torch.Tensor) and out.shape == (2,)

@@ -238,8 +238,12 @@ def test_model_prior_refuses_host_distributions():
 
     m = et.Model(name="host_prior")
     et.Prior(HostDist, model=m, name="a")
-    with pytest.raises(NotImplementedError, match="host"):
-        ModelPrior(m)
+    # host priors are ported now: the prior builds, and only its device
+    # density is refused, as in the JAX package
+    prior = ModelPrior(m)
+    assert prior.host
+    with pytest.raises(ValueError, match="host"):
+        prior.traceable_logpdf()
 
 
 # -- GMDistribution -----------------------------------------------------------
