@@ -4,6 +4,9 @@
     python3 chip_smoke.py
 
 runs on cuda:0 and writes a profiler table of each graph to build/profiles/.
+Every profile goes through ``utils.profiling.recorded`` (its recording
+starts after a warm-up step) and fails its phase unless each of its host
+launches has its device record.
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -142,7 +145,39 @@ Phases, each of which raises on failure (exit code != 0):
    and a device distance through ``Rejection`` (2**17 simulations, mean
    within 0.1 of the observed 1.2) and ``Model.generate``; BDM with its C++
    simulator built by ``ensure_executable`` into a temporary directory.
-21. The default device: ``Rejection(m["d"], batch_size=2**21,
+21. Output pools, with no ``device=``: ``Rejection(m["d"],
+   batch_size=2**21, seed=11, pool=OutputPool(["t1", "t2", "d"]))
+   .sample(5000, n_sim=16 * 2**21)`` on the MA2 kernel graph launches K1
+   16 times and equals a pool-less batch-at-a-time run bit for bit; the
+   same call again replays the pool (K1 0 times, no prior draw, equal);
+   ``n_sim=24 * 2**21`` launches K1 8 more times (24 batches pooled);
+   ``fused=True`` with a pool raises.  Walls and sims/s of each run, the
+   pool's copy off the card per batch (host clock, and the DtoH device time
+   of one profiled batch holding exactly one K1 kernel), a stored batch's
+   copy back.  An ``ArrayPool`` of
+   the plain graph's t1, t2 and simulations (2**17 x 8) saved, opened and
+   replayed through a model with a cityblock distance on the same node
+   names: no simulator call, equal to that model's own run; deleted.
+22. Persistence and the aux modules: the MA2 kernel model saved after a
+   run on the card (no CUDA tensor in the pickle) and loaded, equal samples
+   at the same seed; ``adjust_posterior`` on a plain-graph sample (2**21
+   simulations) within 0.1 of (0.6, 0.2); ``compare_models``;
+   ``TwoStageSelection`` of the lag-1 and lag-2 autocovariances at 2**20
+   simulations, the simulator run once a batch (the other candidates
+   replay its pool); a ``Testbench`` of two repetitions; a
+   ``utils.profiling.trace`` of one batch holding its ``annotate`` name and
+   a device record for each of its host launches; matplotlib never
+   imported.
+23. The eleven distributions on the card: 2**22 draws each from a CUDA
+   generator, mean and variance within 5 standard errors of scipy's
+   (cauchy: the quartiles), a KS distance under 1.5e-3; ``logpdf``,
+   ``cdf`` and ``ppf`` at 4096 points on the card equal to the CPU (rtol
+   1e-5, atol 1e-6; 1e-4 and 1e-5 on betainc or a bisection).  The
+   gamma/beta prior model of ``scripts/torch_prior_reference.py``: a
+   device graph with its ``ModelPrior`` on the card, rejection at 2**20 a
+   batch and SMC, posterior means within (0.01, 0.003) and (0.02, 0.006) of
+   the JAX package's for the same calls.
+24. The default device: ``Rejection(m["d"], batch_size=2**21,
    seed=1).sample(1000, n_sim=8 * 2**21)`` on the MA2 kernel graph with no
    ``device=`` anywhere and no backend set must run on cuda:0 through K1.
 
@@ -358,6 +393,50 @@ ZOO_JAX_REJECTION = {
                    sd_jax=[0.01953859267697256, 0.4654487514044549, 0.0024340760520443028],
                    sd_port=[0.008969244370053366, 0.43261259692907084, 0.002890023742057926]),
 }
+
+# Pools, persistence, the aux modules and the distributions.  The pool
+# phase runs the MA2 kernel graph at the main path's batch: 16 batches
+# pooled, replayed, then extended to 24; an ArrayPool of the plain graph's
+# simulations at 2**17 a batch for 8 batches.
+POOL_SEED = 11
+POOL_BATCHES = 16
+POOL_EXTRA = 8
+ARRAY_POOL_BATCHES = 8
+AUX_N_SIM = 2**20
+AUX_GATE = 0.1          # |adjusted posterior mean - (0.6, 0.2)| at 2**21 sims
+DIST_DRAWS = 2**22
+DIST_POINTS = 4096
+DIST_SE = 5.0           # draws' mean and variance within 5 SEs of scipy's
+DIST_KS = 1.5e-3        # KS distance of 2**22 draws to scipy's cdf
+DIST_TOL = (1e-5, 1e-6)  # the card against the CPU: rtol, atol ...
+DIST_TOL_LOOSE = (1e-4, 1e-5)  # ... and for functions on betainc or a
+                               # bisection
+DIST_CASES = [
+    ("lognorm", (0.5, 0.0, 2.0), (0.05, 8.0), ("logpdf", "cdf", "ppf")),
+    ("gamma", (2.0, 0.0, 1.5), (0.01, 15.0), ("logpdf", "cdf", "ppf")),
+    ("beta", (2.0, 5.0), (0.001, 0.999), ("logpdf", "cdf", "ppf")),
+    ("binom", (20, 0.3), None, ("logpdf",)),
+    ("poisson", (4.0,), None, ("logpdf",)),
+    ("t", (10.0, 0.5, 2.0), (-8.0, 8.0), ("logpdf", "cdf", "ppf")),
+    ("cauchy", (1.0, 2.0), (-20.0, 20.0), ("logpdf", "cdf", "ppf")),
+    ("laplace", (0.5, 2.0), (-10.0, 10.0), ("logpdf", "cdf", "ppf")),
+    ("chi2", (4.0,), (0.01, 20.0), ("logpdf", "cdf", "ppf")),
+    ("skewnorm", (3.0, 0.2, 1.5), (-3.0, 6.0), ("logpdf", "cdf")),
+    ("weibull_min", (1.5, 0.0, 2.0), (0.01, 8.0), ("logpdf", "cdf", "ppf")),
+]
+DIST_LOOSE = {("gamma", "ppf"), ("chi2", "ppf"), ("beta", "cdf"),
+              ("beta", "ppf"), ("t", "cdf"), ("t", "ppf")}
+# The gamma/beta prior model of scripts/torch_prior_reference.py: posterior
+# means (a, b) of the JAX package for the same calls, on the CPU:
+#   python3 scripts/torch_prior_reference.py --seeds 1
+# The tolerances are about 4 sqrt(2) times the seed-to-seed sd of either
+# package over seeds 1-3 (rejection 0.0012-0.0015 and 0.0002-0.0003, SMC
+# 0.003 and 0.0008-0.0013; the same script with --port for the port's).
+GB_JAX_MEANS = {"rejection": np.array([1.4957072734832764,
+                                       0.2987924814224243]),
+                "smc": np.array([1.495306380606196, 0.29821240630426016])}
+GB_TOL = {"rejection": np.array([0.01, 0.003]),
+          "smc": np.array([0.02, 0.006])}
 
 # The card's rates for a kernel's bound, H100 SXM at its 1.98 GHz boost clock
 # over 132 SMs: HBM bytes per second; thread operations per second through
@@ -1096,17 +1175,33 @@ def sync_guarded(fn):
 
 
 def bsl_profile(bsl_run, n_steps):
-    """(CUDA kernel and copy events, device microseconds) of one fused
-    chain of ``n_steps`` steps, and the profile itself."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        bsl_run(5, n_steps)
-        torch.cuda.synchronize()
+    """(CUDA kernel and copy events, device microseconds, the averaged
+    events, the profile) of one fused chain of ``n_steps`` steps."""
+    _, prof = profiled(lambda: bsl_run(5, n_steps))
     events, device_us = device_table(prof)
-    n_events = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
-    return n_events, device_us, events
+    n_events = sum(e.count for e in card_events(events))
+    return n_events, device_us, events, prof
+
+
+def host_rows(events, prof):
+    """(key, self host microseconds, calls) of a profile's averaged host
+    events, less ``recorded``'s own: its step and primer annotations and
+    the primer's host events (kineto events up to the primer's end)."""
+    from torch.autograd import DeviceType
+    from elfi_tpu_torch.utils.profiling import PRIMER_NAME
+    kineto = prof.profiler.kineto_results.events()
+    end = primer_end(kineto)
+    less = {}
+    for e in kineto:
+        if (e.device_type() == DeviceType.CPU and e.name() != PRIMER_NAME
+                and e.start_ns() <= end
+                and not e.name().startswith("ProfilerStep")):
+            us, n = less.get(e.name(), (0.0, 0))
+            less[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return [(e.key, e.self_cpu_time_total - less.get(e.key, (0.0, 0))[0],
+             e.count - less.get(e.key, (0.0, 0))[1]) for e in events
+            if e.device_type == DeviceType.CPU and e.key != PRIMER_NAME
+            and not e.key.startswith("ProfilerStep")]
 
 
 def phase_bsl():
@@ -1180,8 +1275,8 @@ def phase_bsl():
     def short(seed, n_steps):
         make(seed).sample(n_steps, **BSL_SAMPLE_KW)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    n1, us1, _ = bsl_profile(short, BSL_PROFILE_STEPS + 1)
-    n2, us2, events = bsl_profile(short, 2 * BSL_PROFILE_STEPS + 1)
+    n1, us1, _, _ = bsl_profile(short, BSL_PROFILE_STEPS + 1)
+    n2, us2, events, prof2 = bsl_profile(short, 2 * BSL_PROFILE_STEPS + 1)
     per_step = (n2 - n1) / BSL_PROFILE_STEPS
     device_ms = (us2 - us1) / 1e3 / BSL_PROFILE_STEPS
     wall_ms = dt * 1e3 / BSL_N
@@ -1194,13 +1289,12 @@ def phase_bsl():
         f"busy {device_ms / wall_ms!r} of it; tables by device and by host "
         f"time in build/profiles/profile_ma2_bsl{{,_host}}.txt")
     log_top(events, us2, 2 * BSL_PROFILE_STEPS + 1)
-    host_us = sum(e.self_cpu_time_total for e in events)
+    rows = host_rows(events, prof2)
+    host_us = sum(us for _, us, _ in rows)
     n_profiled = 2 * BSL_PROFILE_STEPS + 1
-    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:5]:
-        per = e.self_cpu_time_total / 1e3 / n_profiled
-        log(f"  host, profiled: {per:.4f} ms/step "
-            f"({e.self_cpu_time_total / host_us:.3f}, {e.count} calls) "
-            f"{e.key[:60]}")
+    for key, us, calls in sorted(rows, key=lambda r: -r[1])[:5]:
+        log(f"  host, profiled: {us / 1e3 / n_profiled:.4f} ms/step "
+            f"({us / host_us:.3f}, {calls} calls) {key[:60]}")
 
     # tests/functional/test_bsl.py TestFusedBSL._run: fused against host
     point = dict(sigma_proposals=np.diag([.05, .05]),
@@ -1252,28 +1346,81 @@ def ricker_bolfi_model():
     return m
 
 
+#: host calls that put work on the card: each has at least one device
+#: record (a kernel, a copy or a memset; a graph replay runs many)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+#: the kernel of ``utils.profiling.recorded``'s primer (``torch.cuda._sleep``)
+PRIMER_KERNEL = "spin_kernel"
+
+
 def profile_counts(prof):
     """(host launch calls, device kernels, device microseconds) of a
     profile: a graph replay is one launch call and runs many kernels."""
-    from torch.autograd import DeviceType
     events, device_us = device_table(prof)
-    launch_calls = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-        "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
-        "cudaMemsetAsync"))
-    kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    launch_calls = len(block_launches(prof.profiler.kineto_results.events()))
+    kernels = sum(e.count for e in card_events(events))
     return launch_calls, kernels, device_us, events
 
 
+def primer_end(events):
+    """The host time (ns) at which ``recorded``'s primer ends among a
+    profile's kineto events, 0 without one."""
+    from torch.autograd import DeviceType
+    from elfi_tpu_torch.utils.profiling import PRIMER_NAME
+    return max((e.start_ns() + e.duration_ns() for e in events
+                if e.name() == PRIMER_NAME
+                and e.device_type() == DeviceType.CPU), default=0)
+
+
+def block_launches(events):
+    """A profile's host launches (kineto events) after ``recorded``'s
+    primer: those of the profiled block."""
+    end = primer_end(events)
+    return [e for e in events
+            if e.name() in LAUNCH_CALLS and e.start_ns() > end]
+
+
 def profiled(fn):
-    """(fn's result, its profile), the card synchronised around it."""
-    from torch.profiler import ProfilerActivity, profile
+    """(fn's result, its profile) through ``utils.profiling.recorded``: the
+    recording starts after a warm-up step, the card is synchronised around
+    ``fn`` and the window held open at each end.  Fails unless every host
+    launch of the profile has its device record."""
+    from elfi_tpu_torch.utils.profiling import recorded
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with recorded() as prof:
         out = fn()
-        torch.cuda.synchronize()
+    check_complete(prof.profiler.kineto_results.events(), "the profile")
     return out, prof
+
+
+def executed_launches(events):
+    """Correlation ids of the profiled block's host launches that ran on
+    the card: those made while a stream was captured into a CUDA graph only
+    record their work (it runs, and is traced, when the graph is
+    replayed)."""
+    begins = sorted(e.start_ns() for e in events
+                    if e.name().startswith("cudaStreamBeginCapture"))
+    ends = sorted(e.start_ns() for e in events
+                  if e.name().startswith("cudaStreamEndCapture"))
+    spans = list(zip(begins, ends))
+    return [e.correlation_id() for e in block_launches(events)
+            if not any(b <= e.start_ns() <= f for b, f in spans)]
+
+
+def check_complete(events, what):
+    """Fail unless every host launch among a profile's kineto events that
+    ran on the card has a device record, matched by CUPTI correlation id
+    (one id a launch)."""
+    from torch.autograd import DeviceType
+    launches = executed_launches(events)
+    on_device = {e.correlation_id() for e in events
+                 if e.device_type() == DeviceType.CUDA}
+    lost = set(launches) - on_device
+    check(len(set(launches)) == len(launches) and not lost,
+          f"{what} lost the device records of {len(lost)} of its "
+          f"{len(launches)} host launches ({len(set(launches))} ids)")
 
 
 def nuts_per_iteration(target, args, x0s, widths, table):
@@ -2310,6 +2457,516 @@ def phase_host(device):
                 bdm_build_s=build, bdm_wall_s=bwall)
 
 
+# -- pools, persistence, the aux modules and the distributions -------------
+
+def timed_rejection(make, n_samples=N_SAMPLES, **kw):
+    """(method, sample, wall seconds) of ``make().sample(n_samples,
+    **kw)``, the card synchronised around it."""
+    rej = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rej.sample(n_samples, bar=False, **kw)
+    torch.cuda.synchronize()
+    return rej, res, time.perf_counter() - t0
+
+
+def check_equal_samples(a, b, what, names=None):
+    """``a`` and ``b`` equal bit for bit in ``names`` (default: all their
+    outputs, which must be the same)."""
+    if names is None:
+        check(set(a.outputs) == set(b.outputs), f"{what}: different outputs")
+        names = a.outputs
+    for k in names:
+        check(np.array_equal(a.outputs[k], b.outputs[k]),
+              f"{what}: {k} differs")
+
+
+class count_prior_draws:
+    """Counts calls of the MA2 priors' ``rvs`` inside the block."""
+
+    def __enter__(self):
+        from elfi_tpu_torch.models import ma2
+        self.n = 0
+        self.saved = {c: c.__dict__["rvs"]
+                      for c in (ma2.CustomPrior1, ma2.CustomPrior2)}
+        for cls, orig in self.saved.items():
+            def rvs(*a, _orig=orig.__get__(None, cls), **kw):
+                self.n += 1
+                return _orig(*a, **kw)
+            cls.rvs = staticmethod(rvs)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self.saved.items():
+            cls.rvs = orig
+
+
+def phase_pool(device):
+    """Output pools on the card, with no ``device=``: (a) the MA2 kernel
+    graph pooled at batch 2**21 over 16 batches launches K1 16 times and
+    equals a pool-less batch-at-a-time run bit for bit; (b) a second run
+    with the pool and seed launches K1 zero times, draws no prior and is
+    bit-equal; (c) 24 batches launch K1 8 more times and the pool holds 24;
+    (d) ``fused=True`` with a pool raises.  A profiled pooled batch gives
+    the copy off the card.  Then an ArrayPool of the plain graph's t1, t2
+    and simulations (2**17 x 8): saved, opened and replayed through a model
+    with another distance on the same node names, with no simulator call
+    and equal to that model's own run; deleted."""
+    import os
+    import tempfile
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import ma2, ma2_kernel
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from torch.autograd import DeviceType
+    et.reset_client()
+    m = ma2_kernel.get_model(seed_obs=SEED_OBS)
+    kw = dict(batch_size=KERNEL_BATCH, seed=POOL_SEED)
+    n_a = POOL_BATCHES * KERNEL_BATCH
+    n_c = (POOL_BATCHES + POOL_EXTRA) * KERNEL_BATCH
+    k2_before = gnk_distance.launches
+    # warm-up: the allocator at this batch, two batches at a time
+    et.Rejection(m["d"], **kw).sample(N_SAMPLES, n_sim=2 * KERNEL_BATCH,
+                                      fused=False, bar=False)
+    _, ref, ref_wall = timed_rejection(
+        lambda: et.Rejection(m["d"], **kw), n_sim=n_a, fused=False)
+
+    pool = et.OutputPool(["t1", "t2", "d"])
+    ma2_distance.launches = 0
+    rej_a, a, wall_a = timed_rejection(
+        lambda: et.Rejection(m["d"], pool=pool, **kw), n_sim=n_a)
+    launches_a = ma2_distance.launches
+    check(launches_a == POOL_BATCHES, f"pooled run: K1 launched "
+          f"{launches_a} times, expected {POOL_BATCHES}")
+    check(len(pool) == POOL_BATCHES, f"pool holds {len(pool)} batches")
+    check(rej_a.device == device, f"pooled run on {rej_a.device}")
+    check_equal_samples(a, ref, "(a) pooled vs pool-less")
+    timers_a = rej_a.batches.timers.report()
+
+    ma2_distance.launches = 0
+    with count_prior_draws() as draws:
+        rej_b, b, wall_b = timed_rejection(
+            lambda: et.Rejection(m["d"], pool=pool, **kw), n_sim=n_a)
+    launches_b = ma2_distance.launches
+    check(launches_b == 0, f"replay: K1 launched {launches_b} times")
+    check(draws.n == 0, f"replay: the priors drew {draws.n} times")
+    check(all(v.device == device for v in rej_b.state["samples"].values()),
+          "replay: the merge did not run on the card")
+    check_equal_samples(b, a, "(b) replay vs pooled")
+    timers_b = rej_b.batches.timers.report()
+    h2d = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rej_b.batches._replayed(i)
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t0)
+
+    ma2_distance.launches = 0
+    rej_c, c, wall_c = timed_rejection(
+        lambda: et.Rejection(m["d"], pool=pool, **kw), n_sim=n_c)
+    launches_c = ma2_distance.launches
+    check(launches_c == POOL_EXTRA, f"extension: K1 launched {launches_c} "
+          f"times, expected {POOL_EXTRA}")
+    check(len(pool) == POOL_BATCHES + POOL_EXTRA,
+          f"extended pool holds {len(pool)} batches")
+    check(c.n_sim == n_c, f"extension: n_sim {c.n_sim}")
+    try:
+        et.Rejection(m["d"], pool=pool, **kw).sample(
+            N_SAMPLES, n_sim=n_a, fused=True, bar=False)
+    except ValueError as e:
+        check("pool" in str(e), f"(d) raised {e!r}")
+    else:
+        raise AssertionError("(d) fused=True with a pool did not raise")
+    check(gnk_distance.launches == k2_before, "K2 launched in the pool phase")
+
+    # one pooled batch under the profiler: the copy off the card
+    ppool = et.OutputPool(["t1", "t2", "d"])
+    rej_p = et.Rejection(m["d"], batch_size=KERNEL_BATCH,
+                         seed=POOL_SEED + 1, pool=ppool)
+    _, prof = profiled(lambda: rej_p.sample(N_SAMPLES, n_sim=KERNEL_BATCH,
+                                            bar=False))
+    events, device_us = device_table(prof)
+    (OUT_DIR / "profile_ma2_pooled_batch.txt").write_text(events.table(
+        sort_by="self_device_time_total", row_limit=30))
+    d2h_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA and "DtoH" in e.key)
+    k1 = [e for e in events if e.device_type == DeviceType.CUDA
+          and "ma2_distance_kernel" in e.key]
+    k1_us = sum(e.self_device_time_total for e in k1)
+    check(sum(e.count for e in k1) == 1 and k1_us > 0,
+          f"the pooled batch's profile holds {sum(e.count for e in k1)} K1 "
+          f"kernels ({k1_us} us), expected one")
+    check(d2h_us > 0, "the pooled batch's profile holds no copy off the card")
+    pooled_bytes = 3 * 4 * KERNEL_BATCH
+    log(f"pool (MA2 kernel graph, batch {KERNEL_BATCH}, seed {POOL_SEED}): "
+        f"pool-less batch at a time {n_a} sims in {ref_wall!r} s "
+        f"({n_a / ref_wall!r} sims/s); (a) pooled {wall_a!r} s "
+        f"({n_a / wall_a!r} sims/s), K1 {launches_a}, callback (copy off "
+        f"the card) {timers_a['callback']['mean_s'] * 1e3!r} ms a batch for "
+        f"{pooled_bytes} bytes; (b) replay {wall_b!r} s ({n_a / wall_b!r} "
+        f"sims/s), K1 {launches_b}, prior draws {draws.n}, host-to-device "
+        f"of a stored batch {statistics.median(h2d) * 1e3!r} ms; (c) "
+        f"extension to {n_c} in {wall_c!r} s, K1 {launches_c}, pool "
+        f"{len(pool)}; (d) fused=True raises")
+    log(f"pooled batch profiled: device {device_us / 1e3!r} ms, of it "
+        f"DtoH copies {d2h_us / 1e3!r} ms and K1 {k1_us / 1e3!r} ms")
+
+    mp = ma2.get_model(seed_obs=SEED_OBS)
+    n8 = ARRAY_POOL_BATCHES * PLAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        apool = et.ArrayPool(["t1", "t2", "MA2"], name="ma2_arraypool",
+                             prefix=tmp)
+        _, _, wall_ap = timed_rejection(
+            lambda: et.Rejection(mp["d"], batch_size=PLAIN_BATCH, seed=13,
+                                 pool=apool), n_sim=n8)
+        t0 = time.perf_counter()
+        apool.save()
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(apool.path, f))
+                     for f in os.listdir(apool.path))
+        opened = et.ArrayPool.open("ma2_arraypool", prefix=tmp)
+        check(len(opened) == ARRAY_POOL_BATCHES,
+              f"opened ArrayPool holds {len(opened)} batches")
+        m2 = ma2.get_model(seed_obs=SEED_OBS)
+        et.Distance("cityblock", m2["S1"], m2["S2"], model=m2, name="d_cb")
+        sim_calls = {"n": 0}
+        sim_op = m2["MA2"].state["op"]
+
+        def counting_sim(*args, **kwargs):
+            sim_calls["n"] += 1
+            return sim_op(*args, **kwargs)
+
+        m2.update_node("MA2", op=counting_sim)
+        _, fresh, _ = timed_rejection(
+            lambda: et.Rejection(m2["d_cb"], batch_size=PLAIN_BATCH,
+                                 seed=13), n_sim=n8, fused=False)
+        check(sim_calls["n"] == ARRAY_POOL_BATCHES,
+              f"the new distance's own run simulated {sim_calls['n']} times")
+        sim_calls["n"] = 0
+        _, replay, wall_replay = timed_rejection(
+            lambda: et.Rejection(m2["d_cb"], batch_size=PLAIN_BATCH,
+                                 seed=13, pool=opened), n_sim=n8)
+        check(sim_calls["n"] == 0,
+              f"ArrayPool replay ran the simulator {sim_calls['n']} times")
+        # the replay's outputs also hold the pooled simulations
+        check_equal_samples(replay, fresh, "ArrayPool replay",
+                            names=fresh.outputs)
+        path = opened.path
+        opened.delete()
+        check(not os.path.isdir(path), "ArrayPool.delete left its files")
+    log(f"ArrayPool (plain graph, t1, t2, MA2, {ARRAY_POOL_BATCHES} x "
+        f"{PLAIN_BATCH}): pooled run {wall_ap!r} s, save {save_s!r} s, "
+        f"{nbytes} bytes of .npy; replay through a cityblock distance "
+        f"{wall_replay!r} s, 0 simulator calls, equal to its own run; "
+        f"deleted")
+    return dict(
+        launches={"pooled": launches_a, "replay": launches_b,
+                  "extension": launches_c},
+        pooless_wall_s=ref_wall, pooled_wall_s=wall_a, replay_wall_s=wall_b,
+        extension_wall_s=wall_c, pooled_sims_per_s=n_a / wall_a,
+        replay_sims_per_s=n_a / wall_b,
+        callback_ms_per_batch=timers_a["callback"]["mean_s"] * 1e3,
+        replay_submit_ms=timers_b["submit"]["mean_s"] * 1e3,
+        h2d_ms_per_batch=statistics.median(h2d) * 1e3,
+        profiled_batch_device_ms=device_us / 1e3, d2h_device_ms=d2h_us / 1e3,
+        k1_device_ms=k1_us / 1e3, array_pool_bytes=nbytes,
+        array_pool_wall_s=wall_ap, array_pool_save_s=save_s,
+        array_pool_replay_wall_s=wall_replay)
+
+
+def ss_lag1(y):
+    from elfi_tpu_torch.models import ma2
+    return ma2.autocov(y)
+
+
+def ss_lag2(y):
+    from elfi_tpu_torch.models import ma2
+    return ma2.autocov(y, lag=2)
+
+
+def phase_persistence_aux(device):
+    """Model persistence and the aux modules on the card, with no
+    ``device=``: the MA2 kernel model saved after a run on the card (no CUDA
+    tensor in the pickle) and loaded gives bit-equal samples at the same
+    seed; ``adjust_posterior`` on a plain-graph sample (batch 2**17, 2**21
+    simulations) within AUX_GATE of (0.6, 0.2); ``compare_models`` of two
+    samples; ``TwoStageSelection`` of the lag-1 and lag-2 autocovariances
+    at 2**20 simulations, the simulator run once a batch; a ``Testbench``
+    of two repetitions; ``utils.profiling.trace`` around one batch (its
+    Chrome trace holds the ``annotate`` name and the card's kernels); and
+    matplotlib never imported."""
+    import tempfile
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import ma2, ma2_kernel
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.utils.profiling import annotate, trace
+    et.reset_client()
+    out = {}
+    mk = ma2_kernel.get_model(seed_obs=SEED_OBS)
+    ma2_distance.launches = 0
+    r1 = et.Rejection(mk["d"], batch_size=KERNEL_BATCH, seed=21).sample(
+        N_SAMPLES, n_sim=4 * KERNEL_BATCH, bar=False)
+    check(device in mk["d"].state["op"]._obs_on,
+          "the kernel op kept no copy on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = mk.save(prefix=tmp)
+        with open(path, "rb") as f:
+            raw = f.read()
+        check(b"cuda" not in raw, "the saved model holds a CUDA tensor")
+        loaded = et.load_model(path)
+    r2 = et.Rejection(loaded["d"], batch_size=KERNEL_BATCH, seed=21).sample(
+        N_SAMPLES, n_sim=4 * KERNEL_BATCH, bar=False)
+    check_equal_samples(r2, r1, "loaded model")
+    out["persistence_launches"] = ma2_distance.launches
+    check(out["persistence_launches"] == 8,
+          f"persistence: K1 launched {ma2_distance.launches} times")
+    log(f"persistence: MA2 kernel model saved from the card ({len(raw)} "
+        f"bytes, no CUDA tensor) and loaded: samples equal at seed 21")
+
+    mp = ma2.get_model(seed_obs=SEED_OBS)
+    rej = et.Rejection(mp["d"], output_names=["S1", "S2"],
+                       batch_size=PLAIN_BATCH, seed=22)
+    res = rej.sample(N_SAMPLES, n_sim=16 * PLAIN_BATCH, bar=False)
+    t0 = time.perf_counter()
+    adj = et.adjust_posterior(res, rej.model, ["S1", "S2"], ["t1", "t2"])
+    adj_s = time.perf_counter() - t0
+    raw_means = res.sample_means_array
+    adj_means = adj.sample_means_array
+    check(bool(np.all(np.isfinite(adj.samples_array))),
+          "adjusted sample not finite")
+    check(bool(np.all(np.abs(adj_means - TRUE_PARAMS) < AUX_GATE)),
+          f"adjusted means {adj_means} off (0.6, 0.2) by {AUX_GATE} or more")
+    log(f"adjust_posterior: raw means {raw_means.tolist()!r}, adjusted "
+        f"{adj_means.tolist()!r} in {adj_s!r} s")
+    p = et.compare_models([res, r1])
+    check(p.shape == (2,) and bool(np.all(np.isfinite(p)))
+          and abs(float(p.sum()) - 1) < 1e-9 and bool(np.all(p >= 0)),
+          f"compare_models gave {p}")
+    log(f"compare_models(plain graph, kernel graph): {p.tolist()!r}")
+
+    msel = ma2.get_model(seed_obs=SEED_OBS)
+    sim_calls = {"n": 0}
+    sim_op = msel["MA2"].state["op"]
+
+    def counting_sim(*args, **kwargs):
+        sim_calls["n"] += 1
+        return sim_op(*args, **kwargs)
+
+    msel.update_node("MA2", op=counting_sim)
+    selector = et.TwoStageSelection(msel["MA2"], "euclidean",
+                                    list_ss=[ss_lag1, ss_lag2],
+                                    max_cardinality=2, seed=23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = selector.run(n_sim=AUX_N_SIM, batch_size=PLAIN_BATCH)
+    sel_s = time.perf_counter() - t0
+    names = [f.__name__ for f in best]
+    check(isinstance(best, tuple) and 1 <= len(best) <= 2,
+          f"TwoStageSelection returned {best}")
+    check(sim_calls["n"] == AUX_N_SIM // PLAIN_BATCH,
+          f"selection simulated {sim_calls['n']} batches, expected "
+          f"{AUX_N_SIM // PLAIN_BATCH} (the other candidates replay)")
+    log(f"TwoStageSelection (3 candidates, {AUX_N_SIM} sims each, the "
+        f"simulator run {sim_calls['n']} times): {names} in {sel_s!r} s")
+
+    tb = et.Testbench(model=mp, repetitions=2, seed=24, progress_bar=False)
+    tb.add_method(et.TestbenchMethod(
+        et.Rejection, method_kwargs={"batch_size": PLAIN_BATCH,
+                                     "discrepancy_name": "d"},
+        sample_kwargs={"n_samples": 1000, "n_sim": 8 * PLAIN_BATCH,
+                       "bar": False}, name="rejection"))
+    t0 = time.perf_counter()
+    tb.run()
+    tb_s = time.perf_counter() - t0
+    diffs = tb.parameterwise_sample_mean_differences()["rejection"]
+    check(all(len(v) == 2 and bool(np.all(np.isfinite(v)))
+              for v in diffs.values()), f"Testbench differences {diffs}")
+    log(f"Testbench (rejection x 2 repetitions) in {tb_s!r} s: "
+        f"mean - reference {diffs!r}")
+
+    logdir = OUT_DIR / "trace_one_batch"
+    rej = et.Rejection(mp["d"], batch_size=PLAIN_BATCH, seed=25)
+    with trace(str(logdir)):
+        with annotate("elfi_one_batch"):
+            rej.sample(100, n_sim=PLAIN_BATCH, bar=False)
+            torch.cuda.synchronize()
+    with open(logdir / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    named = sum(1 for e in events if e.get("name") == "elfi_one_batch")
+    kernels, launches, lost = trace_completeness(events)
+    check(named > 0 and kernels > 0 and launches and not lost,
+          f"trace: {named} annotations, {kernels} kernels, the device "
+          f"records of {len(lost)} of {len(launches)} host launches lost")
+    check("matplotlib" not in sys.modules, "matplotlib was imported")
+    log(f"trace: {logdir / 'trace.json'} holds the annotation and "
+        f"{kernels} kernels of one batch, a device record for each of its "
+        f"{len(launches)} host launches; matplotlib not imported")
+    out.update(adjusted_means=adj_means.tolist(), raw_means=raw_means.tolist(),
+               compare_models=p.tolist(), selection=names,
+               selection_wall_s=sel_s, testbench_wall_s=tb_s,
+               trace_kernels=kernels)
+    return out
+
+
+def trace_completeness(events):
+    """(the block's kernels, its host launches' correlation ids, those
+    without a device record) of a Chrome trace written through
+    ``utils.profiling.recorded``: what follows its primer."""
+    from elfi_tpu_torch.utils.profiling import PRIMER_NAME
+    primer_end = max((e["ts"] + e.get("dur", 0) for e in events
+                      if e.get("name") == PRIMER_NAME
+                      and e.get("cat") == "user_annotation"), default=0)
+    kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                  and PRIMER_KERNEL not in e.get("name", ""))
+    launches = [e["args"].get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("name") in LAUNCH_CALLS and e["ts"] > primer_end]
+    on_card = {e["args"].get("correlation") for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    return kernels, launches, set(launches) - on_card
+
+
+def ks_distance(x, dist, discrete):
+    """Kolmogorov-Smirnov distance of the sample ``x`` to the frozen scipy
+    distribution ``dist``: over every integer of the sample's range for a
+    discrete one, at both sides of every sorted point for a continuous
+    one."""
+    x = np.sort(x)
+    n = len(x)
+    if discrete:
+        k = np.arange(x[0], x[-1] + 1)
+        return float(np.max(np.abs(
+            np.searchsorted(x, k, side="right") / n - dist.cdf(k))))
+    f = dist.cdf(x)
+    i = np.arange(1, n + 1)
+    return float(max(np.max(i / n - f), np.max(f - (i - 1) / n)))
+
+
+def gamma_beta_means(res):
+    w = np.ones(res.n_samples) if res.weights is None \
+        else np.asarray(res.weights, np.float64)
+    w = w / w.sum()
+    return np.array([np.sum(w * res.samples[k]) for k in "ab"])
+
+
+def phase_distributions(device):
+    """The eleven distributions on the card: 2**22 draws each from a CUDA
+    generator, mean and variance within DIST_SE standard errors of scipy's
+    (cauchy: median and IQR), a KS distance under DIST_KS; ``logpdf``,
+    ``cdf`` and ``ppf`` at DIST_POINTS on the card equal to the CPU.  Then
+    the gamma/beta prior model (scripts/torch_prior_reference.py): a device
+    graph, its ``ModelPrior`` on the card, rejection at 2**20 a batch and
+    SMC, posterior means within GB_TOL of the JAX package's."""
+    import scipy.stats as ss
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.compile.compiler import compile_program
+    from elfi_tpu_torch.ops import distributions as dists
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from scripts.torch_prior_reference import REJ, SMC, port_model
+    et.reset_client()
+    k_before = (ma2_distance.launches, gnk_distance.launches)
+    rng = np.random.default_rng(0)
+    out = {}
+    for i, (name, params, xr, fns) in enumerate(DIST_CASES):
+        dist = getattr(dists, name)
+        check(dists.from_name(name) is dist, f"{name} does not resolve")
+        sd = getattr(ss, name)(*params)
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        draw_ms = time_ms(lambda: dist.rvs(*params, size=DIST_DRAWS,
+                                           generator=g), warmup=1, reps=5)
+        x = dist.rvs(*params, size=DIST_DRAWS, generator=g)
+        check(x.device == device and x.shape == (DIST_DRAWS,),
+              f"{name}: drew {tuple(x.shape)} on {x.device}")
+        x = x.double().cpu().numpy()
+        n = len(x)
+        if name == "cauchy":
+            loc, scale = params
+            q = np.percentile(x, [25, 50, 75])
+            se = scale * np.pi * np.sqrt(np.array([3, 4, 3]) / 16 / n) \
+                * np.array([2.0, 1.0, 2.0])
+            stats = dict(median=q[1], iqr=q[2] - q[0])
+            errs = np.abs(q - (loc + scale * np.array([-1, 0, 1]))) / se
+        else:
+            mean, var, kurt = (float(v) for v in sd.stats(moments="mvk"))
+            se_mean = np.sqrt(var / n)
+            se_var = var * np.sqrt((kurt + 2) / n)
+            stats = dict(mean=float(x.mean()), var=float(x.var()))
+            errs = np.array([abs(x.mean() - mean) / se_mean,
+                             abs(x.var() - var) / se_var])
+        check(bool(np.all(errs < DIST_SE)), f"{name}: moments {stats} are "
+              f"{errs.tolist()} SEs from scipy's")
+        ks = ks_distance(x, sd, name in ("binom", "poisson"))
+        check(ks < DIST_KS, f"{name}: KS distance {ks} >= {DIST_KS}")
+        worst = {}
+        for fn in fns:
+            arg = (rng.uniform(0, 1, DIST_POINTS) if fn == "ppf" else
+                   np.arange(21.0) if xr is None else
+                   rng.uniform(*xr, DIST_POINTS)).astype(np.float32)
+            arg = torch.as_tensor(arg)
+            on_card = getattr(dist, fn)(arg.to(device), *params)
+            check(on_card.device == device, f"{name}.{fn} left the card")
+            on_cpu = getattr(dist, fn)(arg, *params).numpy()
+            on_card = on_card.cpu().numpy()
+            rtol, atol = DIST_TOL_LOOSE if (name, fn) in DIST_LOOSE \
+                else DIST_TOL
+            check(np.array_equal(np.isfinite(on_card), np.isfinite(on_cpu)),
+                  f"{name}.{fn}: non-finite values differ card/CPU")
+            fin = np.isfinite(on_cpu)
+            excess = np.abs(on_card[fin] - on_cpu[fin]) - (
+                atol + rtol * np.abs(on_cpu[fin]))
+            check(bool(np.all(excess <= 0)), f"{name}.{fn}: card and CPU "
+                  f"differ beyond rtol {rtol}, atol {atol}")
+            worst[fn] = float(np.max(np.abs(on_card[fin] - on_cpu[fin])
+                                     / np.maximum(np.abs(on_cpu[fin]),
+                                                  1e-30)))
+        out[name] = dict(draw_ms=draw_ms, ks=ks, se_errs=errs.tolist(),
+                         card_cpu_rel=worst, **stats)
+        log(f"{name}{params}: 2**22 draws in {draw_ms!r} ms on the card, "
+            f"{stats}, {np.round(errs, 3).tolist()} SEs, KS {ks!r}; card vs "
+            f"CPU worst rel {worst}")
+
+    et_, m = port_model()
+    prog = compile_program(m, ("d", "a", "b"), device=device)
+    check(not prog.host, "the gamma/beta graph is a host graph")
+    prior = et.ModelPrior(m)
+    check(not prior.host and prior.device == device,
+          "the gamma/beta ModelPrior is not on the card")
+    lp = prior.traceable_logpdf()(torch.tensor([[1.0, 0.3]], device=device))
+    want = ss.gamma.logpdf(1.0, 2.0) + ss.beta.logpdf(0.3, 2.0, 5.0)
+    check(lp.device == device and abs(float(lp) - want) < 1e-4,
+          f"ModelPrior logpdf {float(lp)} on {lp.device}, scipy {want}")
+    rej, r, rwall = timed_rejection(
+        lambda: et.Rejection(m["d"], batch_size=REJ["batch_size"], seed=1),
+        n_samples=REJ["n_samples"], n_sim=REJ["n_sim"])
+    check(all(v.device == device for v in rej.state["samples"].values()),
+          "gamma/beta rejection did not run on the card")
+    smc = et.SMC(m["d"], batch_size=SMC["batch_size"], seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = smc.sample(SMC["n_samples"], quantiles=SMC["quantiles"], bar=False)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    check(smc._prior.device == device, "SMC's prior is not on the card")
+    for kind, res in (("rejection", r), ("smc", s)):
+        means = gamma_beta_means(res)
+        err = np.abs(means - GB_JAX_MEANS[kind])
+        check(bool(np.all(err < GB_TOL[kind])), f"gamma/beta {kind}: means "
+              f"{means} vs the JAX package's {GB_JAX_MEANS[kind]}")
+        out[f"gamma_beta_{kind}"] = dict(means=means.tolist(),
+                                         err=err.tolist())
+        log(f"gamma/beta {kind}: means {means.tolist()!r}, |err| to JAX "
+            f"{err.tolist()!r} (tolerance {GB_TOL[kind].tolist()})")
+    k_after = (ma2_distance.launches, gnk_distance.launches)
+    check(k_after == k_before, "a distance kernel launched in the "
+          "distributions phase")
+    log(f"gamma/beta on the card: rejection {REJ['n_sim']} sims in "
+        f"{rwall!r} s, SMC {s.n_populations} rounds in {swall!r} s")
+    out.update(gamma_beta_rejection_wall_s=rwall, gamma_beta_smc_wall_s=swall)
+    return out
+
+
 def phase_default_device():
     """The MA2 kernel graph with no ``device=`` anywhere and no backend set:
     the port's default, the current CUDA device, through K1."""
@@ -2336,18 +2993,27 @@ def phase_default_device():
     return dict(launches=launches, device=str(rej.device))
 
 
-def device_table(prof):
-    """(events, device microseconds) of a profile: kernels and memsets
-    only, since an operator's own device time repeats its kernels'."""
+def card_events(events):
+    """The kernels, copies and memsets among a profile's averaged events:
+    not the spans the profiler draws on the card for a host annotation
+    (such as a ``ProfilerStep``), which would count their kernels again,
+    nor ``recorded``'s primer kernels."""
     from torch.autograd import DeviceType
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and PRIMER_KERNEL not in e.key]
+
+
+def device_table(prof):
+    """(events, device microseconds) of a profile: kernels, copies and
+    memsets only, since an operator's own device time repeats its
+    kernels'."""
     events = prof.key_averages()
-    return events, sum(e.self_device_time_total for e in events
-                       if e.device_type == DeviceType.CUDA)
+    return events, sum(e.self_device_time_total for e in card_events(events))
 
 
 def log_top(events, device_us, nb):
-    from torch.autograd import DeviceType
-    top = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+    top = sorted(card_events(events),
                  key=lambda e: -e.self_device_time_total)[:5]
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / nb:.4f} ms/batch "
@@ -2359,7 +3025,6 @@ def phase_profile(device, main_path):
     main path's device busy share (that time over the main path's wall time
     per batch).  Tables go to build/profiles/."""
     import elfi_tpu_torch as et
-    from torch.profiler import ProfilerActivity, profile
     from elfi_tpu_torch.models import gnk, gnk_kernel, ma2, ma2_kernel
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     gnk_kw = dict(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
@@ -2372,11 +3037,8 @@ def phase_profile(device, main_path):
         m = mod.get_model(**kw)
         rej = et.Rejection(m["d"], batch_size=bs, seed=1, device=device)
         rej.sample(N_SAMPLES, n_sim=2 * bs, bar=False)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            rej.sample(N_SAMPLES, n_sim=nb * bs, bar=False)
-            torch.cuda.synchronize()
+        _, prof = profiled(lambda: rej.sample(N_SAMPLES, n_sim=nb * bs,
+                                              bar=False))
         events, device_us = device_table(prof)
         per_batch_ms = device_us / 1e3 / nb
         run = main_path[name]
@@ -2395,13 +3057,9 @@ def phase_profile(device, main_path):
     # the whole gauss2d SMC run of phase 10, seed 4 again: the same batches
     from elfi_tpu_torch.models import gauss
     m = gauss.get_model(**GAUSS_KW)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = et.SMC(m["d"], batch_size=GAUSS_BATCH, seed=4,
-                     device=device).sample(GAUSS_N,
-                                           thresholds=GAUSS_THRESHOLDS,
-                                           bar=False)
-        torch.cuda.synchronize()
+    res, prof = profiled(lambda: et.SMC(
+        m["d"], batch_size=GAUSS_BATCH, seed=4, device=device).sample(
+            GAUSS_N, thresholds=GAUSS_THRESHOLDS, bar=False))
     events, device_us = device_table(prof)
     run = main_path["gauss2d smc"]
     nb = res.n_batches
@@ -2469,6 +3127,12 @@ def main():
     main_path["romc gnk"] = phase_romc()
     main_path["zoo"] = phase_zoo(device)
     main_path["host"] = phase_host(device)
+    t_new = time.perf_counter()
+    main_path["pool"] = phase_pool(device)
+    main_path["persistence and aux"] = phase_persistence_aux(device)
+    main_path["distributions"] = phase_distributions(device)
+    log(f"pool, persistence/aux and distributions phases: "
+        f"{time.perf_counter() - t_new!r} s")
     default_device = phase_default_device()
 
     log(json.dumps({"main_path": main_path,
@@ -2477,8 +3141,10 @@ def main():
                                  f"gnk_{GNK_BATCH}": k2_checks["merge_ms"]},
                     "adaptive": adaptive,
                     "card": card}))
+    pool_launches = main_path["pool"]["launches"]
     k1_launches = (main_path["kernel graph"]["launches"]
-                   + main_path["ma2 smc kernel graph"]["launches"])
+                   + main_path["ma2 smc kernel graph"]["launches"]
+                   + sum(pool_launches.values()))
     k1_bound, k1_by = bound_ms(k1_ops(N_OBS), 12, KERNEL_BATCH)
     k2_bound, k2_by = bound_ms(k2_ops(GNK_N_OBS), 20, GNK_BATCH)
     log(json.dumps({"kernels": [{
@@ -2492,7 +3158,10 @@ def main():
                 main_path["kernel graph"]["launches"],
             "ma2 smc kernel graph":
                 main_path["ma2 smc kernel graph"]["launches"],
-            "ma2 rejection, no device given": default_device["launches"]},
+            "ma2 rejection, no device given": default_device["launches"],
+            "ma2 pooled rejection": pool_launches["pooled"],
+            "ma2 pooled replay": pool_launches["replay"],
+            "ma2 pooled extension": pool_launches["extension"]},
         "max_abs_err": k1_checks["max_abs_err"],
         "max_rel_err": k1_checks["max_rel_err"],
         "ms": k1_checks["ms"],

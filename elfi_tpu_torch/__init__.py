@@ -25,27 +25,41 @@ merge, the distance metrics, the host executor for graphs with
 ``host=True`` nodes (scipy priors, numpy simulators, external commands
 through ``tools``), the model zoo (MA2, g-and-k, Gaussian, Ricker, AR(1),
 ARCH, M/G/1, stochastic volatility, Lorenz-96, toad, Lotka-Volterra,
-daycare, scratch assay and BDM), and the fused MA2 and g-and-k distance
-kernels.
+daycare, scratch assay and BDM), the fused MA2 and g-and-k distance
+kernels, output pools and their replay (``OutputPool``, ``ArrayPool``),
+model persistence (``Model.save``, ``load_model``), regression adjustment,
+model comparison, summary selection, the testbench, profiling
+(``utils.profiling``) and plotting (``visualization``, which imports
+matplotlib only when it draws).
 """
 
-from .model import (AdaptiveDistance, Constant, Discrepancy,  # noqa: F401
-                    Distance, Model, ModelPrior, Operation, Prior, Simulator,
-                    Summary)
+from .model import (AdaptiveDistance, ComputationContext,  # noqa: F401
+                    Constant, Discrepancy, Distance, Model, ModelPrior,
+                    NodeReference, Operation, Prior, RandomVariable,
+                    Simulator, Summary, get_default_model, new_model,
+                    set_default_model)
+from .model.model import load_model  # noqa: F401
 from .ops.distributions import Distribution  # noqa: F401
-from .parallel import (NativeBackend, get_client, reset_client,  # noqa: F401
-                       set_client)
+from .parallel import (BatchHandler, NativeBackend, get_client,  # noqa: F401
+                       reset_client, set_client)
 from .methods import (AdaptiveDistanceSMC,  # noqa: F401
                       AdaptiveThresholdSMC, BayesianOptimization, BOLFI,
                       BOLFIRE, BolfireSample, BolfiSample, BSL, BslSample,
                       GPRegression, ModelBased, NDimBoundingBox,
-                      OptimisationProblem, OptimizationResult, Rejection,
-                      ROMC, RomcPosterior, RomcSample, Sample, SMC,
-                      SmcSample)
+                      OptimisationProblem, OptimizationResult,
+                      ParameterInference, Rejection, ROMC, RomcPosterior,
+                      RomcSample, Sample, SMC, SmcSample)
 from .methods import mcmc  # noqa: F401
+from .store import ArrayPool, OutputPool  # noqa: F401
+from .visualization import (draw, nx_draw, plot_params_vs_node,  # noqa: F401
+                            plot_predicted_summaries)
 from .model import tools  # noqa: F401
+from .methods import (LinearAdjustment, TwoStageSelection,  # noqa: F401
+                      adjust_posterior, compare_models)
+from .testbench import Testbench, TestbenchMethod  # noqa: F401
 
-# the reference's name for the model container
+# the reference's names for the model container and the GP surrogate
 ElfiModel = Model
+GPyRegression = GPRegression
 
 __version__ = "0.1.0"

@@ -15,3 +15,6 @@ from .bolfire import BOLFIRE  # noqa: F401
 from .classifier import GPClassifier, LogisticRegression  # noqa: F401
 from .romc import (ROMC, NDimBoundingBox,  # noqa: F401
                    OptimisationProblem, RomcPosterior)
+from .post_processing import LinearAdjustment, adjust_posterior  # noqa: F401
+from .model_selection import compare_models  # noqa: F401
+from .diagnostics import TwoStageSelection  # noqa: F401

@@ -29,10 +29,14 @@ class ParameterInference:
     global backend's device (the current CUDA device unless a backend on
     another device was set; without a CUDA device that raises).  A
     requested device is used as given, never replaced.
+
+    ``pool`` (an :class:`~elfi_tpu_torch.store.OutputPool`) stores the
+    pooled nodes' outputs of every consumed batch and replays the batches
+    it holds; a method with a pool runs batch at a time.
     """
 
     def __init__(self, model, output_names, batch_size=1, seed=None,
-                 max_parallel_batches=None, device=None):
+                 pool=None, max_parallel_batches=None, device=None):
         model = model.model if isinstance(model, NodeReference) else model
         if not model.parameter_names:
             raise ValueError(f"Model {model.name} defines no parameters")
@@ -42,7 +46,7 @@ class ParameterInference:
         self.client = get_client()
         self.device = resolve_device(device)
         self.computation_context = ComputationContext(batch_size=batch_size,
-                                                      seed=seed)
+                                                      seed=seed, pool=pool)
         self.batches = BatchHandler(self.model,
                                     context=self.computation_context,
                                     output_names=self.output_names,
@@ -54,6 +58,10 @@ class ParameterInference:
         self.bar = True
 
     # -- properties ----------------------------------------------------------
+    @property
+    def pool(self):
+        return self.computation_context.pool
+
     @property
     def seed(self):
         return self.computation_context.seed
@@ -80,17 +88,33 @@ class ParameterInference:
     def prepare_new_batch(self, batch_index):
         return None
 
+    def plot_state(self, **kwargs):
+        raise NotImplementedError
+
     # -- the loop ---------------------------------------------------------------
-    def infer(self, *args, bar=True, **kwargs):
-        """Run the inference loop batch at a time."""
+    def infer(self, *args, vis=None, bar=True, **kwargs):
+        """Run the inference loop batch at a time.
+
+        ``vis``: live plotting, ``True`` or a dict of plot options; after
+        every consumed batch the method's ``plot_state`` redraws (in a
+        notebook through ``IPython.display``), and once more with
+        ``close=True`` at the end.
+        """
         self.bar = bar
+        vis_opt = dict(interactive=True, **(vis if isinstance(vis, dict)
+                                            else {})) if vis else None
         self.set_objective(*args, **kwargs)
         pb = _ProgressBar() if bar else None
         while not self.finished:
             self.iterate()
+            if vis_opt:
+                self.plot_state(**vis_opt)
             if pb:
                 pb.update(self.state["n_batches"], self._objective_n_batches)
         self.batches.cancel_pending()
+        if vis_opt:
+            self.plot_state(close=True, **{k: v for k, v in vis_opt.items()
+                                           if k != "interactive"})
         if pb:
             pb.finish()
         return self.extract_result()

@@ -385,27 +385,57 @@ class BayesianOptimization(ParameterInference):
         next_update = self.state["last_GP_update"] + self.update_interval
         return current >= self.n_initial_evidence and current >= next_update
 
+    def plot_state(self, **options):
+        """Live view: in 2-D the GP mean's contour with the acquired points,
+        the newest in red; else
+        :func:`~elfi_tpu_torch.visualization.plot_gp`."""
+        gp = self.target_model
+        if gp.input_dim == 2 and gp.n_evidence > 0:
+            from ..visualization import draw_contour
+            return draw_contour(
+                lambda g: gp.predict(g)[0].ravel(), gp.bounds,
+                parameter_names=gp.parameter_names,
+                title="GP posterior mean", points=gp.X, **options)
+        from ..visualization import plot_gp
+        return plot_gp(gp, gp.parameter_names)
+
+    def plot_discrepancy(self, axes=None, **kwargs):
+        from ..visualization import plot_discrepancy
+        return plot_discrepancy(self.target_model,
+                                self.target_model.parameter_names,
+                                axes=axes, **kwargs)
+
+    def plot_gp(self, axes=None, resol=50, const=None, bounds=None,
+                true_params=None, **kwargs):
+        from ..visualization import plot_gp
+        return plot_gp(self.target_model,
+                       self.target_model.parameter_names, axes, resol,
+                       const, bounds, true_params, **kwargs)
+
 
 class BOLFI(BayesianOptimization):
     """Bayesian Optimization for Likelihood-Free Inference (Gutmann &
     Corander 2016; reference ``bolfi.py:400-598``)."""
 
-    def fit(self, n_evidence, threshold=None, bar=True, fused=None):
+    def fit(self, n_evidence, threshold=None, bar=True, fused=None,
+            vis=None):
         """Fit the GP surrogate to the discrepancy, then extract the
         posterior (reference ``bolfi.py:417-440``).
 
-        ``fused`` (default: where eligible) runs the whole BO loop queued
-        on the device (:meth:`_fused_fit`); ``fused=False`` runs the host
-        loop."""
+        ``fused`` (default: where eligible and no ``vis``) runs the whole BO
+        loop queued on the device (:meth:`_fused_fit`); ``fused=False``
+        runs the host loop, which ``vis`` (live plots) needs."""
         logger.info("BOLFI: Fitting the surrogate model...")
         if n_evidence is None:
             raise ValueError("n_evidence must be specified")
+        if fused and self.pool is not None:
+            raise ValueError("fused=True requires: no pool")
         if fused is None:
-            fused = self._fused_eligible()
+            fused = self._fused_eligible() and vis is None
         if fused:
             self._fused_fit(n_evidence)
         else:
-            self.infer(n_evidence, bar=bar)
+            self.infer(n_evidence, bar=bar, vis=vis)
         return self.extract_posterior(threshold)
 
     def _fused_eligible(self):
@@ -413,7 +443,8 @@ class BOLFI(BayesianOptimization):
                                override_names=tuple(self.parameter_names),
                                device=self.device)
         acq = self.acquisition_method
-        return (self.batch_size == 1
+        return (self.pool is None
+                and self.batch_size == 1
                 and self.n_precomputed_evidence == 0
                 and isinstance(self.client, NativeBackend)
                 and type(acq) is LCBSC

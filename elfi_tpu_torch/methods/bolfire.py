@@ -258,6 +258,8 @@ class BOLFIRE(ModelBased):
             raise TypeError("n_evidence must be a positive integer")
         if n_evidence < self.n_evidence:
             logger.warning("Requesting less evidence than already exists")
+        if fused and self.pool is not None:
+            raise ValueError("fused=True requires: no pool")
         # fewer rounds than the initial evidence: the host loop stops at
         # n_evidence, where the fused fit would run every initial round
         eligible = (n_evidence >= self.n_initial_evidence
@@ -406,11 +408,11 @@ class BOLFIRE(ModelBased):
         prior box equal to the bounds takes the path without the prior cost
         (constant over the box); any other prior adds ``-log prior`` to the
         objective and draws the initial evidence from the prior program.
-        The JAX package's ``pool`` condition is absent: the port has no
-        pools."""
+        A pool stores and replays batch by batch: the host loop."""
         clf = self.classifier
         acq = self.acquisition_method
-        if not (self.batch_size == self.n_sim_round
+        if not (self.pool is None
+                and self.batch_size == self.n_sim_round
                 and isinstance(self.client, NativeBackend)
                 and type(acq) is LCBSC
                 and acq.constraints is None

@@ -97,7 +97,7 @@ class BSL(ModelBased):
 
         loglik_t = None if self.is_misspec \
             else traceable_likelihood(self.likelihood, device=self.device)
-        eligible = (loglik_t is not None
+        eligible = (loglik_t is not None and self.pool is None
                     and self.batch_size == self.n_sim_round
                     and isinstance(self.client, NativeBackend)
                     and not kwargs)
@@ -114,7 +114,7 @@ class BSL(ModelBased):
         if fused and not eligible:
             raise ValueError(
                 "fused=True requires a traceable estimator (standard/"
-                "Warton/unbiased), no misspecification adjustment, "
+                "Warton/unbiased), no misspecification adjustment, no pool, "
                 "batch_size == n_sim_round and a device-traceable model")
         if not fused:
             return self.infer(n_samples, bar=bar, **kwargs)

@@ -163,6 +163,11 @@ class BolfiPosterior:
         raise NotImplementedError(
             "Use a sampler (e.g. BOLFI.sample) to sample from the posterior")
 
+    def plot(self, logpdf=False):
+        from ..visualization import plot_gp
+        return plot_gp(self.model, self.model.parameter_names or
+                       [f"x{i}" for i in range(self.dim)])
+
 
 def _gp_mean(fns, theta, Xp, mask, alpha, params):
     """The GP posterior mean at rows ``theta``: ``k(theta, X) alpha``."""

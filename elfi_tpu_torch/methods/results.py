@@ -1,6 +1,7 @@
 """Inference result containers (counterpart of
-:mod:`elfi_tpu.methods.results`); numpy in, numpy out.  Plotting and the
-arviz export wait for the visualization slice."""
+:mod:`elfi_tpu.methods.results`); numpy in, numpy out.  The plotting
+methods import :mod:`elfi_tpu_torch.visualization` (and so matplotlib)
+when they are called."""
 
 from __future__ import annotations
 
@@ -119,6 +120,17 @@ class Sample(ParameterInferenceResult):
             np.ones(self.n_samples)
         return compute_ess(w)
 
+    @property
+    def idata(self):
+        """arviz ``InferenceData`` of the samples (one chain); a dict of
+        numpy arrays where arviz is not installed."""
+        try:
+            import arviz as az
+        except ImportError:
+            return {k: np.asarray(v) for k, v in self.samples.items()}
+        return az.convert_to_inference_data(
+            {k: np.asarray(v)[None] for k, v in self.samples.items()})
+
     # -- io -----------------------------------------------------------------
     def __str__(self):
         return self.summary_string()
@@ -165,10 +177,18 @@ class Sample(ParameterInferenceResult):
         else:
             raise ValueError("Unknown extension; use .pkl/.csv/.json")
 
+    # -- plotting -------------------------------------------------------------
+    def plot_marginals(self, selector=None, bins=20, axes=None, **kwargs):
+        from ..visualization import plot_marginals
+        return plot_marginals(self.samples, selector, bins, axes, **kwargs)
+
+    def plot_pairs(self, selector=None, bins=20, axes=None, **kwargs):
+        from ..visualization import plot_pairs
+        return plot_pairs(self.samples, selector, bins, axes, **kwargs)
+
 
 class SmcSample(Sample):
-    """SMC result with the population of every round.  Plotting waits for
-    the visualization slice."""
+    """SMC result with the population of every round."""
 
     def __init__(self, method_name, outputs, parameter_names, populations,
                  **kwargs):
@@ -183,6 +203,13 @@ class SmcSample(Sample):
     def posterior_means(self, round=-1):
         return self.populations[round].sample_means
 
+    def plot_populations(self, **kwargs):
+        """:func:`~elfi_tpu_torch.visualization.plot_pairs` of each
+        round's population."""
+        from ..visualization import plot_pairs
+        for pop in self.populations:
+            plot_pairs(pop.samples, **kwargs)
+
     def sample_means_summary(self, all=False):
         if not all:
             self.summary()
@@ -194,8 +221,7 @@ class SmcSample(Sample):
 
 class BolfiSample(Sample):
     """BOLFI MCMC result: chains (n_chains, n_iters, dim), flattened past
-    the warm-up into the outputs (reference ``results.py:507-543``).
-    ``plot_traces`` waits for the visualization slice."""
+    the warm-up into the outputs (reference ``results.py:507-543``)."""
 
     def __init__(self, method_name, chains, parameter_names, warmup, **kwargs):
         chains = np.asarray(chains)
@@ -208,6 +234,10 @@ class BolfiSample(Sample):
         self.warmup = warmup
         self.n_chains = n_chains
 
+    def plot_traces(self, selector=None, axes=None, **kwargs):
+        from ..visualization import plot_traces
+        return plot_traces(self, selector, axes, **kwargs)
+
 
 class BolfireSample(BolfiSample):
     """BOLFIRE MCMC result, laid out as :class:`BolfiSample` (reference
@@ -216,8 +246,7 @@ class BolfireSample(BolfiSample):
 
 class BslSample(Sample):
     """BSL MCMC result: the chain past ``burn_in`` as the sample, the
-    whole chain in ``samples_all``.  ``plot_traces`` waits for the
-    visualization slice."""
+    whole chain in ``samples_all``."""
 
     def __init__(self, method_name, samples_all, parameter_names, burn_in=0,
                  **kwargs):
@@ -235,6 +264,17 @@ class BslSample(Sample):
         from .mcmc import eff_sample_size
         return {n: float(eff_sample_size(np.asarray(v)[None]))
                 for n, v in self.samples.items()}
+
+    def plot_traces(self, selector=None, axes=None, **kwargs):
+        """The whole chain, one trace per parameter, the burn-in marked."""
+        from types import SimpleNamespace
+
+        from ..visualization import plot_traces
+        chains = np.stack(list(self.samples_all.values()), axis=-1)[None]
+        trace = SimpleNamespace(chains=chains,
+                                parameter_names=self.parameter_names,
+                                warmup=self.burn_in)
+        return plot_traces(trace, selector, axes, **kwargs)
 
 
 class RomcSample(Sample):

@@ -42,6 +42,7 @@ import torch
 
 from ..compile.compiler import compile_program
 from ..model.extensions import ModelPrior
+from ..parallel.backends import resolve_device
 from ..utils import get_sub_seed, random_seed
 from ..utils.rng import fold_in, generator as make_generator
 from .base import ParameterInference, _ProgressBar
@@ -296,10 +297,10 @@ class NDimBoundingBox:
 class RegionConstructor:
     """Builds the bounding box via eigenvector line searches (reference
     ``romc.py:1851-1968``).  ``func`` maps points (..., D) to values
-    (...)."""
+    (...); the searches run on ``device`` (None: the global backend's)."""
 
     def __init__(self, result, func, dim, eps_region, K=10, eta=1.,
-                 rep_lim=300, device="cpu"):
+                 rep_lim=300, device=None):
         self.res = result
         self.func = func
         self.dim = dim
@@ -307,7 +308,7 @@ class RegionConstructor:
         self.K = K
         self.eta = eta
         self.rep_lim = rep_lim
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     @staticmethod
     def _find_rotation(hess_appr):

@@ -185,17 +185,18 @@ class Rejection(Sampler):
 
         ``fused=True`` (default when eligible) queues the whole rejection
         loop on the device from one host loop.  An adaptive distance needs
-        the host between batches, so it runs batch at a time.
+        the host between batches, and a pool stores and replays batch by
+        batch, so either runs batch at a time.
         """
         self.bar = bar
-        eligible = (not self.adaptive
+        eligible = (self.pool is None and not self.adaptive
                     and isinstance(self.client, NativeBackend)
                     and not kwargs)
         if fused is None:
             fused = eligible
         if fused and not eligible:
-            raise ValueError("fused=True requires: no adaptive distance, "
-                             "native backend")
+            raise ValueError("fused=True requires: no pool, no adaptive "
+                             "distance, native backend")
         self.set_objective(n_samples, threshold=threshold, quantile=quantile,
                            n_sim=n_sim)
         prog = compile_program(self.model, tuple(self.output_names),
@@ -273,6 +274,14 @@ class Rejection(Sampler):
         self.state["n_sim"] = done * self.batch_size
         self.state["samples"] = buffers
         self.objective["n_batches"] = done
+
+    def plot_state(self, **options):
+        """The current top-N sample's parameters (copied off the card)."""
+        from ..visualization import plot_sample
+        samples = {k: v.cpu().numpy()
+                   for k, v in self.state["samples"].items()}
+        plot_sample(samples, nodes=self.parameter_names,
+                    n=self.objective["n_samples"], **options)
 
 
 class _RoundSchedule:
@@ -375,7 +384,7 @@ class SMC(Sampler):
     _fused_capable = True
 
     def _resolve_fused(self, fused, kwargs):
-        eligible = (self._fused_capable
+        eligible = (self._fused_capable and self.pool is None
                     and isinstance(self.client, NativeBackend)
                     and not kwargs)
         prog = None
@@ -387,7 +396,7 @@ class SMC(Sampler):
             fused = eligible
         if fused and not eligible:
             raise ValueError("fused=True requires: no adaptive distance, "
-                             "native backend, no host nodes")
+                             "no pool, native backend, no host nodes")
         return fused, prog
 
     def _fused_advance_round(self):

@@ -13,6 +13,7 @@ JAX package's ``fold_in(fold_in(key, batch_index), node_uid)``.
 
 from __future__ import annotations
 
+import pickle
 import re
 import traceback
 import zlib
@@ -27,7 +28,7 @@ __all__ = [
     "Model", "ComputationContext", "new_model", "get_default_model",
     "set_default_model", "Constant", "Operation", "RandomVariable", "Prior",
     "Simulator", "Summary", "Discrepancy", "Distance", "AdaptiveDistance",
-    "NodeReference", "node_uid",
+    "NodeReference", "node_uid", "load_model",
 ]
 
 _default_model = None
@@ -62,16 +63,44 @@ def node_uid(name):
 
 
 class ComputationContext:
-    """Per-inference execution bundle: batch size and the integer master
-    seed from which every stream seed is derived."""
+    """Per-inference execution bundle: batch size, the integer master seed
+    from which every stream seed is derived, an optional output pool
+    (:mod:`elfi_tpu_torch.store`) and the submission counter."""
 
-    def __init__(self, batch_size=None, seed=None):
+    def __init__(self, batch_size=None, seed=None, pool=None):
         if seed is None or seed == "global":
             # draw from the global numpy state so unseeded runs differ
             seed = int(np.random.randint(0, 2**31 - 1))
         self.batch_size = int(batch_size or 1)
         self.seed = int(seed)
+        self.pool = pool
         self.num_submissions = 0
+        if pool is not None and hasattr(pool, "set_context"):
+            pool.set_context(self)
+
+    def callback(self, batch, batch_index):
+        """Store a computed batch into the pool (its pooled names only,
+        copied to the host by the pool)."""
+        if self.pool is not None:
+            self.pool.add_batch(batch, batch_index)
+
+    def copy(self):
+        c = ComputationContext(self.batch_size, self.seed, self.pool)
+        c.num_submissions = self.num_submissions
+        return c
+
+
+def _to_cpu(x):
+    """``x`` with every tensor in it (through dicts, lists and tuples)
+    moved to the CPU, so that a pickle made on the card loads without
+    one."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
 
 
 class Model:
@@ -159,6 +188,48 @@ class Model:
                        batch_size=context.batch_size)
         return {k: v.cpu().numpy() if isinstance(v, torch.Tensor)
                 else np.asarray(v) for k, v in out.items()}
+
+    # -- persistence -------------------------------------------------------
+    def save(self, prefix=None):
+        """Pickle the model to ``<prefix>/<name>.pkl``; returns the path.
+        Its ops must pickle (module-level functions and classes do; a
+        lambda or a closure does not)."""
+        path = f"{prefix or '.'}/{self.name}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(self, f)
+        return path
+
+    @classmethod
+    def load(cls, name, prefix=None):
+        path = name if name.endswith(".pkl") else f"{prefix or '.'}/{name}.pkl"
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def __getstate__(self):
+        """The model without its compiled programs, every tensor in a
+        node's state or the observed data moved to the CPU: a model saved
+        on the card loads on a machine without one, and its entry points
+        resolve the device as usual.  Ops that keep per-device copies drop
+        them in their own ``__getstate__``."""
+        d = self.__dict__.copy()
+        d.pop("_program_cache", None)
+        dag = d["dag"].copy()
+        for name, state in dag.nodes.items():
+            dag.nodes[name] = _to_cpu(state)
+        d["dag"] = dag
+        d["observed"] = _to_cpu(d["observed"])
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+
+
+def load_model(name, prefix=None, set_default=True):
+    """Load a model saved by :meth:`Model.save`."""
+    m = Model.load(name, prefix)
+    if set_default:
+        set_default_model(m)
+    return m
 
 
 # ---------------------------------------------------------------------------

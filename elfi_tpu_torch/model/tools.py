@@ -60,9 +60,19 @@ def vectorize_traced(operation, constants=None):
     seed.  A draw is therefore a function of (seed, batch, node), as every
     other node's, and the caller's default generator is left as it was.
     """
-    constants = set(constants or ())
+    return _VmappedOp(operation, constants)
 
-    def op(*inputs, batch_size, generator):
+
+class _VmappedOp:
+    """The op :func:`vectorize_traced` returns: a class rather than a
+    closure, so that a model holding it pickles (``Model.save``)."""
+
+    def __init__(self, operation, constants=None):
+        self.operation = operation
+        self.constants = set(constants or ())
+
+    def __call__(self, *inputs, batch_size, generator):
+        operation, constants = self.operation, self.constants
         in_dims = tuple(0 if i not in constants and isinstance(
             x, torch.Tensor) and x.ndim > 0 else None
             for i, x in enumerate(inputs))
@@ -87,8 +97,6 @@ def vectorize_traced(operation, constants=None):
                 torch.manual_seed(generator.initial_seed())
             return torch.func.vmap(single, in_dims=in_dims,
                                    randomness="different")(*inputs)
-
-    return op
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,10 @@ class _GaussNdMean:
         self.n_obs = n_obs
         self._L_on = {}
 
+    def __getstate__(self):
+        # the per-device copies are rebuilt on first use after loading
+        return {**self.__dict__, "_L_on": {}}
+
     def __call__(self, *mu, batch_size=1, generator=None):
         device = torch.as_tensor(mu[0]).device
         if device not in self._L_on:

@@ -32,6 +32,10 @@ class _KernelGnkDistance:
         self.n_obs = n_obs
         self._obs_on = {}
 
+    def __getstate__(self):
+        # the per-device copies are rebuilt on first use after loading
+        return {**self.__dict__, "_obs_on": {}}
+
     def __call__(self, A, B, g, k, batch_size, generator):
         device = A.device
         if device not in self._obs_on:

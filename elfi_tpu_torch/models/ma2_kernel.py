@@ -30,6 +30,10 @@ class _KernelMA2Distance:
         self.n_obs = n_obs
         self._obs_on = {}
 
+    def __getstate__(self):
+        # the per-device copies are rebuilt on first use after loading
+        return {**self.__dict__, "_obs_on": {}}
+
     def __call__(self, t1, t2, batch_size, generator):
         device = t1.device
         if device not in self._obs_on:

@@ -25,10 +25,13 @@ import numpy as np
 import torch
 
 from ..utils import to_numpy
+from . import special
 
 __all__ = ["Distribution", "uniform", "norm", "truncnorm", "expon",
-           "multivariate_normal", "levy_stable", "ScipyHostDistribution",
-           "wrap_if_foreign", "from_name", "host_seed"]
+           "multivariate_normal", "levy_stable", "lognorm", "gamma", "beta",
+           "binom", "poisson", "t", "cauchy", "laplace", "chi2", "skewnorm",
+           "weibull_min", "ScipyHostDistribution", "wrap_if_foreign",
+           "from_name", "host_seed"]
 
 
 def host_seed(stream):
@@ -98,6 +101,12 @@ class Distribution:
     @classmethod
     def logpdf(cls, x, *params):
         return torch.log(cls.pdf(x, *params))
+
+    @classmethod
+    def gradient_logpdf(cls, x, *params):
+        """Elementwise derivative of ``logpdf`` in ``x``, by autograd."""
+        x = _f32(x).detach().requires_grad_(True)
+        return torch.autograd.grad(cls.logpdf(x, *params).sum(), x)[0]
 
 
 class uniform(Distribution):
@@ -169,10 +178,73 @@ def _f32(x, device=None):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _nan_outside_unit(q, val):
+def _ppf_nan_guard(q, val):
     """scipy parity: ``ppf(q)`` is nan outside ``[0, 1]``."""
     q = torch.as_tensor(q)
     return torch.where((q >= 0) & (q <= 1), val, math.nan)
+
+
+def _bisect_ppf(cdf, q, lo, hi, iters=90):
+    """Invert a monotone ``cdf`` by a fixed count of bisections on the
+    bracket ``[lo, hi]``, elementwise (the JAX package's count): nothing
+    is read back to the host."""
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        below = cdf(mid) < q
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+#: doublings (gamma) or quadruplings (t) of a ppf's upper bracket.  The JAX
+#: package grows it while any element's cdf is short of its quantile; a
+#: fixed count keeps the loop on the device (``2**16`` times the gamma
+#: start of a + 10 sqrt(a) + 10, ``4**32`` times the t start of 10).
+_GROW_STEPS = {"gamma": 16, "t": 32}
+
+
+def _scalar(p):
+    """A Python float for a Python or numpy number, else ``p`` (a tensor
+    becomes float32): a CUDA op takes a Python number as a scalar, where a
+    0-d tensor made on the host would have to be copied to the device,
+    which waits for it."""
+    if isinstance(p, torch.Tensor):
+        return p.to(torch.float32)
+    if np.ndim(p) == 0:
+        return float(p)
+    return torch.as_tensor(np.asarray(p, np.float32))
+
+
+def _tensor(p, like):
+    """``p`` as a float32 tensor for ops that take no Python number
+    (``lgamma``, ``gammainc``, ``betainc``): a number fills a tensor shaped
+    and placed as ``like``."""
+    p = _scalar(p)
+    if isinstance(p, torch.Tensor):
+        return p.to(like.device)
+    return torch.full_like(like, p, dtype=torch.float32)
+
+
+def _log(p, like):
+    """``log p`` of a scale parameter: ``math.log`` of a number."""
+    p = _scalar(p)
+    return torch.log(p.to(like.device)) if isinstance(p, torch.Tensor) \
+        else math.log(p)
+
+
+def _filled(p, shape, device):
+    """A draw's parameter filled to ``shape`` on ``device``, contiguous, as
+    ``torch._standard_gamma``, ``torch.poisson`` and ``torch.binomial``
+    take it."""
+    p = _scalar(p)
+    if isinstance(p, torch.Tensor):
+        return torch.broadcast_to(p.to(device), shape).contiguous()
+    return torch.full(shape, p, dtype=torch.float32, device=device)
+
+
+def _standard_gamma(a, shape, generator):
+    """Gamma(a, 1) draws of ``shape`` on the generator's device."""
+    return torch._standard_gamma(
+        _filled(a, shape, draw_device(generator)), generator=generator)
 
 
 class truncnorm(Distribution):
@@ -221,7 +293,7 @@ class truncnorm(Distribution):
         q = torch.as_tensor(q)
         fa, fb = cls._cdf_bounds(a, b)
         val = loc + scale * torch.special.ndtri(fa + q * (fb - fa))
-        return _nan_outside_unit(q, val)
+        return _ppf_nan_guard(q, val)
 
 
 class expon(Distribution):
@@ -250,7 +322,7 @@ class expon(Distribution):
     @classmethod
     def ppf(cls, q, loc=0.0, scale=1.0):
         q = torch.as_tensor(q)
-        return _nan_outside_unit(q, loc - scale * torch.log1p(-q))
+        return _ppf_nan_guard(q, loc - scale * torch.log1p(-q))
 
 
 def solve_lower_rows(L, r):
@@ -344,6 +416,361 @@ class levy_stable(Distribution):
         shape = _draw_shape(size, alpha, beta, loc, scale)
         U, W = cls.draw(shape, generator)
         return cls.transform(U, W, alpha, beta, loc, scale)
+
+
+class lognorm(Distribution):
+    """scipy parameterisation: shape ``s``, ``scale=exp(mu)``."""
+    name = "lognorm"
+
+    @classmethod
+    def rvs(cls, s, loc=0.0, scale=1.0, size=1, generator=None):
+        shape = _draw_shape(size, s, loc, scale)
+        z = torch.randn(shape, generator=generator,
+                        device=draw_device(generator))
+        return loc + scale * torch.exp(_scalar(s) * z)
+
+    @classmethod
+    def logpdf(cls, x, s, loc=0.0, scale=1.0):
+        y = (_f32(x) - loc) / scale
+        s = _scalar(s)
+        safe = torch.where(y > 0, y, 1.0)
+        lp = (-torch.log(safe * s * scale) - 0.5 * math.log(2 * math.pi)
+              - torch.log(safe) ** 2 / (2 * s * s))
+        return torch.where(y > 0, lp, -math.inf)
+
+    @classmethod
+    def cdf(cls, x, s, loc=0.0, scale=1.0):
+        y = (_f32(x) - loc) / scale
+        safe = torch.where(y > 0, y, 1.0)
+        return torch.where(
+            y > 0, special._ndtr(torch.log(safe) / _scalar(s)), 0.0)
+
+    @classmethod
+    def ppf(cls, q, s, loc=0.0, scale=1.0):
+        return loc + scale * torch.exp(
+            _scalar(s) * torch.special.ndtri(_f32(q)))
+
+
+class gamma(Distribution):
+    """scipy parameterisation: shape ``a``, ``scale`` (= 1/rate)."""
+    name = "gamma"
+
+    @classmethod
+    def rvs(cls, a, loc=0.0, scale=1.0, size=1, generator=None):
+        shape = _draw_shape(size, a, loc, scale)
+        return loc + scale * _standard_gamma(a, shape, generator)
+
+    @classmethod
+    def logpdf(cls, x, a, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        at = _tensor(a, z)
+        safe = torch.where(z > 0, z, 1.0)
+        lp = ((at - 1) * torch.log(safe) - safe - torch.lgamma(at)
+              - _log(scale, z))
+        return torch.where(z > 0, lp, -math.inf)
+
+    @classmethod
+    def cdf(cls, x, a, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        return torch.where(z > 0, torch.special.gammainc(
+            _tensor(a, z), torch.clamp(z, min=0.0)), 0.0)
+
+    @classmethod
+    def ppf(cls, q, a, loc=0.0, scale=1.0):
+        q = _f32(q)
+        qb, ab = torch.broadcast_tensors(q, _tensor(a, q))
+        # bracket: the cdf is 0 at 0; grow hi where it does not cover q
+        qc = torch.clamp(qb, 0.0, 1.0 - 1e-7)
+        hi = ab + 10.0 * torch.sqrt(ab) + 10.0
+        for _ in range(_GROW_STEPS["gamma"]):
+            hi = torch.where(torch.special.gammainc(ab, hi) < qc, hi * 2.0,
+                             hi)
+        z = _bisect_ppf(lambda z: torch.special.gammainc(ab, z), qc,
+                        torch.zeros_like(hi), hi)
+        val = loc + scale * z
+        val = torch.where(qb == 0.0, loc + torch.zeros_like(val), val)
+        val = torch.where(qb == 1.0, math.inf, val)
+        return _ppf_nan_guard(qb, val)
+
+
+class beta(Distribution):
+    """Beta(a, b) on ``[loc, loc + scale]``; a draw is ``X / (X + Y)`` of
+    two gamma draws."""
+    name = "beta"
+
+    @classmethod
+    def rvs(cls, a, b, loc=0.0, scale=1.0, size=1, generator=None):
+        shape = _draw_shape(size, a, b, loc, scale)
+        x = _standard_gamma(a, shape, generator)
+        y = _standard_gamma(b, shape, generator)
+        return loc + scale * (x / (x + y))
+
+    @classmethod
+    def logpdf(cls, x, a, b, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        at, bt = _tensor(a, z), _tensor(b, z)
+        safe = torch.clamp(z, 1e-12, 1 - 1e-12)
+        lp = ((at - 1) * torch.log(safe) + (bt - 1) * torch.log1p(-safe)
+              - special.betaln(at, bt) - _log(scale, z))
+        return torch.where((z > 0) & (z < 1), lp, -math.inf)
+
+    @classmethod
+    def cdf(cls, x, a, b, loc=0.0, scale=1.0):
+        z = torch.clamp((_f32(x) - loc) / scale, 0.0, 1.0)
+        return special.betainc(_tensor(a, z), _tensor(b, z), z)
+
+    @classmethod
+    def ppf(cls, q, a, b, loc=0.0, scale=1.0):
+        q = _f32(q)
+        qb, ab, bb = torch.broadcast_tensors(q, _tensor(a, q),
+                                             _tensor(b, q))
+        z = _bisect_ppf(lambda z: special.betainc(ab, bb, z), qb,
+                        torch.zeros_like(qb), torch.ones_like(qb))
+        val = loc + scale * z
+        val = torch.where(qb == 0.0, loc + torch.zeros_like(val), val)
+        val = torch.where(qb == 1.0, loc + scale + torch.zeros_like(val),
+                          val)
+        return _ppf_nan_guard(qb, val)
+
+
+class binom(Distribution):
+    """Binomial(n, p); draws are float32 counts, as in the JAX package."""
+    name = "binom"
+
+    @classmethod
+    def rvs(cls, n, p, size=1, generator=None):
+        shape = _draw_shape(size, n, p)
+        device = draw_device(generator)
+        return torch.binomial(_filled(n, shape, device),
+                              _filled(p, shape, device),
+                              generator=generator)
+
+    @classmethod
+    def logpdf(cls, x, n, p):
+        x = _f32(x)
+        n = _tensor(n, x)
+        p = _tensor(p, x)
+        return (torch.lgamma(n + 1) - torch.lgamma(x + 1)
+                - torch.lgamma(n - x + 1) + x * torch.log(p)
+                + (n - x) * torch.log1p(-p))
+
+    @classmethod
+    def logpmf(cls, x, n, p):
+        return cls.logpdf(x, n, p)
+
+    @classmethod
+    def pmf(cls, x, n, p):
+        return cls.pdf(x, n, p)
+
+
+class poisson(Distribution):
+    name = "poisson"
+
+    @classmethod
+    def rvs(cls, mu, size=1, generator=None):
+        shape = _draw_shape(size, mu)
+        return torch.poisson(_filled(mu, shape, draw_device(generator)),
+                             generator=generator)
+
+    @classmethod
+    def logpdf(cls, x, mu):
+        x = _f32(x)
+        mu = _tensor(mu, x)
+        return x * torch.log(mu) - mu - torch.lgamma(x + 1)
+
+
+class t(Distribution):
+    """Student's t with ``df`` degrees of freedom (scipy ``t``); a draw is
+    a normal over ``sqrt(chi2 / df)``."""
+    name = "t"
+
+    @classmethod
+    def rvs(cls, df, loc=0.0, scale=1.0, size=1, generator=None):
+        shape = _draw_shape(size, df, loc, scale)
+        device = draw_device(generator)
+        df = _filled(df, shape, device)
+        z = torch.randn(shape, generator=generator, device=device)
+        chi2 = 2.0 * torch._standard_gamma(0.5 * df, generator=generator)
+        return loc + scale * (z / torch.sqrt(chi2 / df))
+
+    @classmethod
+    def logpdf(cls, x, df, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        df = _tensor(df, z)
+        return (torch.lgamma((df + 1) / 2) - torch.lgamma(df / 2)
+                - 0.5 * torch.log(df * math.pi)
+                - (df + 1) / 2 * torch.log1p(z * z / df) - _log(scale, z))
+
+    @classmethod
+    def cdf(cls, x, df, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        df = _tensor(df, z)
+        # 1 - I_{df/(df+z^2)}(df/2, 1/2) / 2 for z >= 0, symmetric below
+        ib = special.betainc(df / 2, torch.full_like(z, 0.5),
+                             df / (df + z * z))
+        return torch.where(z >= 0, 1.0 - 0.5 * ib, 0.5 * ib)
+
+    @classmethod
+    def ppf(cls, q, df, loc=0.0, scale=1.0):
+        q = _f32(q)
+        qb, dfb = torch.broadcast_tensors(q, _tensor(df, q))
+        # solve on the upper half by symmetry: z >= 0 for p >= 0.5
+        p = torch.clamp(torch.where(qb >= 0.5, qb, 1.0 - qb), 0.5,
+                        1.0 - 1e-7)
+        hi = torch.full_like(p, 10.0)
+        for _ in range(_GROW_STEPS["t"]):
+            hi = torch.where(cls.cdf(hi, dfb) < p, hi * 4.0, hi)
+        z = _bisect_ppf(lambda z: cls.cdf(z, dfb), p, torch.zeros_like(hi),
+                        hi)
+        z = torch.where(qb >= 0.5, z, -z)
+        return _ppf_nan_guard(qb, loc + scale * z)
+
+
+class cauchy(Distribution):
+    name = "cauchy"
+
+    @classmethod
+    def rvs(cls, loc=0.0, scale=1.0, size=1, generator=None):
+        shape = _draw_shape(size, loc, scale)
+        c = torch.empty(shape, device=draw_device(generator)).cauchy_(
+            generator=generator)
+        return loc + scale * c
+
+    @classmethod
+    def logpdf(cls, x, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        return -math.log(math.pi) - _log(scale, z) - torch.log1p(z * z)
+
+    @classmethod
+    def cdf(cls, x, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        return 0.5 + torch.arctan(z) / math.pi
+
+    @classmethod
+    def ppf(cls, q, loc=0.0, scale=1.0):
+        q = _f32(q)
+        return _ppf_nan_guard(q, loc + scale * torch.tan(math.pi * (q - 0.5)))
+
+
+class laplace(Distribution):
+    name = "laplace"
+
+    #: a draw is ``sign(u) log1p(-|u|)`` of u uniform on [-1 + eps, 1), as
+    #: ``jax.random.laplace`` draws it
+    _EPS = float(np.finfo(np.float32).eps)
+
+    @classmethod
+    def rvs(cls, loc=0.0, scale=1.0, size=1, generator=None):
+        shape = _draw_shape(size, loc, scale)
+        u = torch.rand(shape, generator=generator,
+                       device=draw_device(generator))
+        u = (-1.0 + cls._EPS) + (2.0 - cls._EPS) * u
+        return loc + scale * (torch.sign(u) * torch.log1p(-torch.abs(u)))
+
+    @classmethod
+    def logpdf(cls, x, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        return -torch.abs(z) - _log(2 * _scalar(scale), z)
+
+    @classmethod
+    def cdf(cls, x, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        return torch.where(z < 0, 0.5 * torch.exp(z),
+                           1.0 - 0.5 * torch.exp(-z))
+
+    @classmethod
+    def ppf(cls, q, loc=0.0, scale=1.0):
+        q = _f32(q)
+        val = torch.where(q < 0.5, loc + scale * torch.log(2 * q),
+                          loc - scale * torch.log(2 * (1 - q)))
+        return _ppf_nan_guard(q, val)
+
+
+class chi2(Distribution):
+    """Chi-squared with ``df`` degrees of freedom = gamma(df/2, scale=2)."""
+    name = "chi2"
+
+    @classmethod
+    def rvs(cls, df, loc=0.0, scale=1.0, size=1, generator=None):
+        return gamma.rvs(_scalar(df) / 2, loc, 2.0 * _scalar(scale),
+                         size=size, generator=generator)
+
+    @classmethod
+    def logpdf(cls, x, df, loc=0.0, scale=1.0):
+        return gamma.logpdf(x, _scalar(df) / 2, loc, 2.0 * _scalar(scale))
+
+    @classmethod
+    def cdf(cls, x, df, loc=0.0, scale=1.0):
+        return gamma.cdf(x, _scalar(df) / 2, loc, 2.0 * _scalar(scale))
+
+    @classmethod
+    def ppf(cls, q, df, loc=0.0, scale=1.0):
+        return gamma.ppf(q, _scalar(df) / 2, loc, 2.0 * _scalar(scale))
+
+
+class skewnorm(Distribution):
+    """Azzalini skew normal with shape ``a`` (scipy ``skewnorm``); the JAX
+    class has no ``ppf``, and neither has this one."""
+    name = "skewnorm"
+
+    @classmethod
+    def rvs(cls, a, loc=0.0, scale=1.0, size=1, generator=None):
+        # conditional representation: z = delta |z0| + sqrt(1-delta^2) z1
+        shape = _draw_shape(size, a, loc, scale)
+        device = draw_device(generator)
+        a = _filled(a, shape, device)
+        delta = a * torch.rsqrt(1.0 + a * a)
+        z0 = torch.randn(shape, generator=generator, device=device)
+        z1 = torch.randn(shape, generator=generator, device=device)
+        z = delta * torch.abs(z0) + torch.sqrt(1.0 - delta * delta) * z1
+        return loc + scale * z
+
+    @classmethod
+    def logpdf(cls, x, a, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        return (math.log(2.0) + norm.logpdf(z)
+                + special.norm_logcdf(_scalar(a) * z) - _log(scale, z))
+
+    @classmethod
+    def cdf(cls, x, a, loc=0.0, scale=1.0):
+        x = _f32(x)
+        return special.skewnorm_cdf(x, _tensor(a, x), loc, scale)
+
+
+class weibull_min(Distribution):
+    """Weibull with shape ``c`` (scipy ``weibull_min``)."""
+    name = "weibull_min"
+
+    @classmethod
+    def rvs(cls, c, loc=0.0, scale=1.0, size=1, generator=None):
+        shape = _draw_shape(size, c, loc, scale)
+        u = torch.rand(shape, generator=generator,
+                       device=draw_device(generator))
+        # uniform on [1e-7, 1), as the JAX package draws it
+        u = 1e-7 + (1.0 - 1e-7) * u
+        return loc + scale * (-torch.log(u)) ** (1.0 / _scalar(c))
+
+    @classmethod
+    def logpdf(cls, x, c, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        c = _scalar(c)
+        safe = torch.where(z > 0, z, 1.0)
+        lp = (_log(c, z) + (c - 1) * torch.log(safe) - safe ** c
+              - _log(scale, z))
+        return torch.where(z > 0, lp, -math.inf)
+
+    @classmethod
+    def cdf(cls, x, c, loc=0.0, scale=1.0):
+        z = (_f32(x) - loc) / scale
+        return torch.where(
+            z > 0, -torch.expm1(-torch.where(z > 0, z, 1.0) ** _scalar(c)),
+            0.0)
+
+    @classmethod
+    def ppf(cls, q, c, loc=0.0, scale=1.0):
+        q = _f32(q)
+        val = loc + scale * (-torch.log1p(-q)) ** (1.0 / _scalar(c))
+        return _ppf_nan_guard(q, val)
 
 
 class ScipyHostDistribution(Distribution):
@@ -472,10 +899,14 @@ def wrap_if_foreign(distribution):
     return ScipyHostDistribution(distribution)
 
 
-_REGISTRY = {d.name: d for d in (uniform, norm, truncnorm, expon,
-                                 multivariate_normal, levy_stable)}
+_REGISTRY = {d.name: d for d in (uniform, norm, truncnorm,
+                                 multivariate_normal, lognorm, expon, gamma,
+                                 beta, binom, poisson, levy_stable, t,
+                                 cauchy, laplace, chi2, skewnorm,
+                                 weibull_min)}
 _REGISTRY["normal"] = norm
 _REGISTRY["exponential"] = expon
+_REGISTRY["student_t"] = t
 
 
 def from_name(name):

@@ -5,7 +5,12 @@ Owen's T is fixed-order Gauss-Legendre quadrature of its integral
 definition, so the same expressions run inside the Adam descents and the
 NUTS leapfrogs, and autograd differentiates them.  The nodes and weights
 are numpy constants at module scope, as in the JAX package; a function
-puts them on its input's device."""
+puts them on its input's device.
+
+:func:`betainc`, the regularized incomplete beta function, which torch
+lacks (``torch.special`` has ``gammainc`` only), is a continued fraction
+with a fixed number of terms: elementwise float32 on the input's device,
+nothing read back to the host."""
 
 from __future__ import annotations
 
@@ -14,7 +19,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["owens_t", "skewnorm_cdf", "norm_cdf", "norm_logcdf"]
+__all__ = ["owens_t", "skewnorm_cdf", "norm_cdf", "norm_logcdf",
+           "betaln", "betainc"]
 
 # 32-point Gauss-Legendre nodes and weights on [0, 1]
 _GL_X_NP, _GL_W_NP = np.polynomial.legendre.leggauss(32)
@@ -113,3 +119,64 @@ def skewnorm_cdf(x, a, loc=0.0, scale=1.0):
     """CDF of the skew-normal: Phi(z) - 2 T(z, a) with z standardized."""
     z = (_f32(x) - loc) / scale
     return torch.clamp(_ndtr(z) - 2.0 * owens_t(z, a), 0.0, 1.0)
+
+
+def betaln(a, b):
+    """``log B(a, b)``."""
+    return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+
+
+#: terms of :func:`betainc`'s continued fraction.  It converges in
+#: O(sqrt(max(a, b))) terms on the side of the symmetry switch where it is
+#: evaluated: against scipy in float64, 32 terms leave the same error as
+#: 200 for a and b up to 1e3, where the float32 front factor dominates it.
+BETAINC_TERMS = 32
+_TINY = 1e-30
+
+
+def _betacf(a, b, x):
+    """The continued fraction of ``I_x(a, b)`` by the modified Lentz method
+    (Numerical Recipes' ``betacf``), ``BETAINC_TERMS`` even and odd
+    steps."""
+    qab, qap, qam = a + b, a + 1.0, a - 1.0
+
+    def clamp(v):
+        return torch.where(torch.abs(v) < _TINY, torch.full_like(v, _TINY),
+                           v)
+
+    c = torch.ones_like(x)
+    d = 1.0 / clamp(1.0 - qab * x / qap)
+    h = d
+    for m in range(1, BETAINC_TERMS + 1):
+        m2 = 2 * m
+        aa = m * (b - m) * x / ((qam + m2) * (a + m2))
+        d = 1.0 / clamp(1.0 + aa * d)
+        c = clamp(1.0 + aa / c)
+        h = h * d * c
+        aa = -(a + m) * (qab + m) * x / ((a + m2) * (qap + m2))
+        d = 1.0 / clamp(1.0 + aa * d)
+        c = clamp(1.0 + aa / c)
+        h = h * d * c
+    return h
+
+
+def betainc(a, b, x):
+    """The regularized incomplete beta function ``I_x(a, b)`` in float32,
+    elementwise over the broadcast of ``a``, ``b`` and ``x``.  The fraction
+    is evaluated for ``I_x(a, b)`` where ``x < (a + 1) / (a + b + 2)`` and
+    for ``1 - I_{1-x}(b, a)`` above; 0 at ``x <= 0`` and 1 at ``x >= 1``."""
+    x = _f32(x)
+    a, b = (v.to(torch.float32) if isinstance(v, torch.Tensor)
+            else torch.full_like(x, float(v)) for v in (a, b))
+    a, b, x = torch.broadcast_tensors(a, b, x)
+    inside = (x > 0) & (x < 1)
+    xs = torch.where(inside, x, torch.full_like(x, 0.5))
+    swap = xs > (a + 1.0) / (a + b + 2.0)
+    aa = torch.where(swap, b, a)
+    bb = torch.where(swap, a, b)
+    xx = torch.where(swap, 1.0 - xs, xs)
+    front = torch.exp(aa * torch.log(xx) + bb * torch.log1p(-xx)
+                      - betaln(aa, bb)) / aa
+    f = front * _betacf(aa, bb, xx)
+    val = torch.where(swap, 1.0 - f, f)
+    return torch.where(inside, val, torch.where(x <= 0, 0.0, 1.0))

@@ -176,7 +176,7 @@ def test_host_adapter_matches_scipy():
 def test_from_name_falls_back_to_scipy_and_unknown_raises():
     assert d.from_name("norm") is d.norm
     assert d.from_name("levy_stable") is d.levy_stable
-    assert isinstance(d.from_name("gamma"), d.ScipyHostDistribution)
+    assert isinstance(d.from_name("gumbel_r"), d.ScipyHostDistribution)
     with pytest.raises(ValueError, match="Unknown distribution"):
         d.from_name("definitely_not_a_distribution")
 

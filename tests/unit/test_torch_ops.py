@@ -65,7 +65,7 @@ def test_rvs_moments(name):
 
 
 def test_unknown_distribution_raises():
-    # a scipy.stats name the port lacks ("gamma") resolves to the host
+    # a scipy.stats name the port lacks ("gumbel_r") resolves to the host
     # adapter; a name scipy lacks too still raises
     with pytest.raises(ValueError, match="Unknown distribution"):
         distributions.from_name("definitely_not_a_distribution")
