@@ -180,6 +180,28 @@ Phases, each of which raises on failure (exit code != 0):
 24. The default device: ``Rejection(m["d"], batch_size=2**21,
    seed=1).sample(1000, n_sim=8 * 2**21)`` on the MA2 kernel graph with no
    ``device=`` anywhere and no backend set must run on cuda:0 through K1.
+25. The backends beyond one device, in at most 60 s: (a) the device list
+   ``ShardedBackend(["cuda:0", "cuda:0"])`` (and a list of one): fused
+   MA2 kernel rejection over 16 batches of 2**21, MA2 kernel SMC at phase
+   11's settings and a g-and-k kernel rejection over 4 batches of 2**21,
+   each equal to native bit for bit with its kernel launched once a batch;
+   ``nuts_chains`` on a standard normal, BSL at the ``TestFusedBSL`` point
+   and ROMC at the 2-d MA2 test point over the list, each equal to the
+   one-device run; (b) ``MultiprocessingBackend(4)``: one probe task of
+   each graph on every worker (its parts: compiling the shipped program
+   for the CPU, the first run, a warm run, a fresh copy), then the
+   all-host graph of ``scripts/torch_host_graph.py`` (32 batches) equal
+   to native on the card, the MA2 plain graph (64 batches) equal to
+   native on the CPU, sims/s both ways; (c)
+   ``ClusterBackend`` on the card: with no worker the MA2 kernel graph
+   runs locally through K1; two ``python -m elfi_tpu_torch.worker``
+   processes give the native samples of the all-host graph, and its
+   batches stay equal when one worker is killed mid-run (the time until
+   its batch is back); (d) ``MultihostBackend``: two processes of this
+   script (``--multihost-rank``) on cuda:0 over gloo, the MA2 kernel graph
+   batch at a time, both equal to the one-process run, each launching K1
+   for its own 4 batches.  The helpers start after (a)'s timed runs, and
+   the ranks wait for the others to finish before they touch the card.
 
 Phase 2 also reads ``ptxas -v`` for every kernel instance and fails on a
 spill store, a spill load or a stack frame.  Each kernel's ``bound_ms`` is
@@ -2993,6 +3015,472 @@ def phase_default_device():
     return dict(launches=launches, device=str(rej.device))
 
 
+# -- the backends beyond one device --------------------------------------------
+
+BACKENDS_SEED = 12
+BACKENDS_BATCHES = 16    # MA2 kernel-graph batches over the device list
+GNK_LIST_BATCHES = 4
+HOST_BATCH = 2**16       # the all-host graph (scripts/torch_host_graph.py)
+HOST_BATCHES = 32        # timed through native, the pool and the cluster
+KILL_BATCHES = 8         # in flight when a cluster worker is killed
+POOL_PROCESSES = 4
+POOL_PLAIN_BATCH = 2**14
+POOL_PLAIN_BATCHES = 64
+CLUSTER_LOCAL_BATCHES = 4
+MULTIHOST_BATCHES = 8
+NUTS_CHAINS, NUTS_ITERS = 8, 200
+BACKENDS_LIMIT_S = 60.0
+
+
+def _helper_env():
+    """The environment of a helper process: the checkout on its path, one
+    torch thread."""
+    import os
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env, root
+
+
+def multihost_rank(rank, address, out_dir, device, batch, n_samples):
+    """One rank of the backends phase's two-process job: the MA2 kernel
+    graph at ``batch`` through ``MultihostBackend`` over gloo on
+    ``device``, batch at a time; writes its samples, its K1 launches and
+    its wall.  Booted, it writes ``ready<rank>`` and touches the card only
+    once the phase writes ``go``, so that no other timed run of the phase
+    shares the card or the host with it."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=address, world_size=2,
+                            rank=rank)
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.models import ma2_kernel
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.parallel.multihost import MultihostBackend
+    out = Path(out_dir)
+    (out / f"ready{rank}").touch()
+    deadline = time.monotonic() + 300
+    while not (out / "go").exists():
+        check(time.monotonic() < deadline, f"rank {rank} got no go")
+        time.sleep(0.02)
+    device, batch, n_samples = torch.device(device), int(batch), \
+        int(n_samples)
+    backend = et.set_client(MultihostBackend(device=device))
+    check(backend.num_processes == 2, "the multihost job has no 2 ranks")
+    m = ma2_kernel.get_model(seed_obs=SEED_OBS)
+    # a warm-up of one batch a rank (the library, the program, the first
+    # broadcast), then both ranks start the timed run together
+    et.Rejection(m["d"], batch_size=batch, seed=BACKENDS_SEED + 1).sample(
+        n_samples, n_sim=2 * batch, bar=False)
+    dist.barrier()
+    ma2_distance.launches = 0
+    res, wall = _timed(lambda: et.Rejection(
+        m["d"], batch_size=batch, seed=BACKENDS_SEED).sample(
+        n_samples, n_sim=MULTIHOST_BATCHES * batch, bar=False))
+    np.save(out / f"rank{rank}.npy", res.samples_array)
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        launches=ma2_distance.launches, wall_s=wall)))
+    dist.destroy_process_group()
+    return 0
+
+
+def _start_multihost(out_dir, device):
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env, root = _helper_env()
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--multihost-rank",
+         str(r), f"tcp://localhost:{port}", str(out_dir), str(device),
+         str(KERNEL_BATCH), str(N_SAMPLES)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def _start_cluster_worker(address, log_path):
+    env, root = _helper_env()
+    return subprocess.Popen(
+        [sys.executable, "-m", "elfi_tpu_torch.worker", address], cwd=root,
+        env=env, stdout=subprocess.DEVNULL,
+        stderr=open(log_path, "w"))
+
+
+def _timed(fn):
+    """(``fn()``, wall seconds), the card synchronised around it."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def pool_probe(program, seed, batch_size, until):
+    """Run in a pool worker: the parts of a task's time there.  The
+    shipped program compiled for this CPU, its first run (this process's
+    first work on that graph), a second run, then a fresh unpickled copy
+    compiled and run as every task's is; then it waits until ``until``
+    (host clock) so that each worker takes one probe."""
+    import os
+    import pickle
+    t = [time.perf_counter()]
+    prog = program.on("cpu")
+    t.append(time.perf_counter())
+    prog.run(seed, 0, {}, batch_size)
+    t.append(time.perf_counter())
+    prog.run(seed, 1, {}, batch_size)
+    t.append(time.perf_counter())
+    copy = pickle.loads(pickle.dumps(program)).on("cpu")
+    t.append(time.perf_counter())
+    copy.run(seed, 2, {}, batch_size)
+    t.append(time.perf_counter())
+    time.sleep(max(0.0, until - time.time()))
+    parts = np.diff(t).tolist()
+    return dict(pid=os.getpid(), **dict(zip(
+        ("compile_s", "first_run_s", "run_s", "copy_compile_s",
+         "copy_run_s"), parts)))
+
+
+def phase_backends(device):
+    """The backends beyond one device, on the card (gates (a)-(d)):
+
+    (a) the device list ``ShardedBackend(["cuda:0", "cuda:0"])``: fused
+        rejection and SMC on the MA2 kernel graph and a g-and-k kernel-graph
+        rejection equal to native bit for bit, each kernel launched once a
+        batch; ``nuts_chains``, BSL and ROMC at the JAX tests' MA2 points
+        over the list equal to the one-device runs;
+    (b) ``MultiprocessingBackend(4)``: the all-host graph equal to native on
+        the card, the MA2 plain graph equal to native on the CPU, both
+        timed after each worker ran one task of each graph;
+    (c) ``ClusterBackend`` on the card: with no worker the MA2 kernel graph
+        runs locally through K1; with two ``python -m
+        elfi_tpu_torch.worker`` processes the all-host graph equals native,
+        and still does when one of them is killed mid-run;
+    (d) ``MultihostBackend``: two processes on cuda:0 over gloo give the
+        one-process samples and each launches K1 for its own batches.
+
+    The helper processes start once (a)'s timed runs are done and boot
+    while its untimed checks run; every timed run of (b), (c) and (d)
+    starts with the other helpers idle (the ranks wait for a ``go`` file
+    until (d))."""
+    import tempfile
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.compile.compiler import compile_program
+    from elfi_tpu_torch.methods.mcmc import nuts_chains
+    from elfi_tpu_torch.models import gnk_kernel, ma2, ma2_kernel
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.parallel.cluster import ClusterBackend
+    from scripts.torch_host_graph import get_model as host_model
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    helpers = []
+    mk = ma2_kernel.get_model(seed_obs=SEED_OBS)
+
+    def kernel_rejection(client, n_batches=CLUSTER_LOCAL_BATCHES):
+        et.set_client(client)
+        return et.Rejection(mk["d"], batch_size=KERNEL_BATCH,
+                            seed=BACKENDS_SEED).sample(
+            N_SAMPLES, n_sim=n_batches * KERNEL_BATCH, bar=False)
+
+    cluster = pool = None
+    try:
+        # (c) first, before any worker exists: the master computes locally
+        cluster = ClusterBackend(device=device)
+        ma2_distance.launches = 0
+        local, wall = _timed(lambda: kernel_rejection(cluster))
+        launches["cluster local"] = ma2_distance.launches
+        check(launches["cluster local"] == CLUSTER_LOCAL_BATCHES,
+              f"the cluster master launched K1 {launches['cluster local']} "
+              f"times, expected {CLUSTER_LOCAL_BATCHES}")
+        native_k = kernel_rejection(et.NativeBackend(device))
+        check_equal_samples(local, native_k, "cluster master, no worker")
+        log(f"backends (c): no worker attached, the cluster master ran "
+            f"{CLUSTER_LOCAL_BATCHES} MA2 kernel batches of 2**21 on the "
+            f"card in {wall!r} s, K1 {launches['cluster local']} times, "
+            "equal to native")
+        out["cluster_local_wall_s"] = wall
+        # (a) the device list
+        one = et.ShardedBackend([device])
+        two = et.ShardedBackend([device, device])
+        check(two.mesh == [device, device] and two.num_cores == 4,
+              f"the device list is {two.mesh}")
+        # timed in turns (native, one, two, two, one, native): a pair in
+        # one process, not two runs apart
+        clients = {"native": et.NativeBackend(device), "one": one,
+                   "two": two}
+        runs, walls = {}, {name: [] for name in clients}
+        for name in ("native", "one", "two", "two", "one", "native"):
+            ma2_distance.launches = 0
+            runs[name], wall = _timed(lambda c=clients[name]:
+                                      kernel_rejection(c, BACKENDS_BATCHES))
+            check(ma2_distance.launches == BACKENDS_BATCHES,
+                  f"rejection on {name}: K1 launched "
+                  f"{ma2_distance.launches} times, expected "
+                  f"{BACKENDS_BATCHES}")
+            walls[name].append(wall)
+            if name == "two":
+                launches["list rejection"] = ma2_distance.launches
+        out["list_rejection_wall_s"] = walls
+        for name in ("one", "two"):
+            check_equal_samples(runs[name], runs["native"],
+                                f"fused rejection over the list ({name})")
+        log(f"backends (a): fused MA2 kernel rejection, {BACKENDS_BATCHES} "
+            f"batches of 2**21, walls in s: {walls}; equal bit for bit, K1 "
+            "once a batch")
+        smc, smc_walls = {}, {"native": [], "two": []}
+        for name in ("native", "two", "two", "native"):
+            et.set_client(clients[name])
+            ma2_distance.launches = 0
+            smc[name], wall = _timed(lambda: et.SMC(
+                mk["d"], batch_size=SMC_BATCH, seed=3).sample(
+                500, quantiles=[0.25, 0.25, 0.25], bar=False))
+            check(ma2_distance.launches == smc[name].n_batches,
+                  f"SMC on {name}: K1 {ma2_distance.launches} times for "
+                  f"{smc[name].n_batches} batches")
+            smc_walls[name].append(wall)
+            if name == "two":
+                launches["list smc"] = ma2_distance.launches
+        out["list_smc_wall_s"] = smc_walls
+        check(np.array_equal(smc["two"].samples_array,
+                             smc["native"].samples_array),
+              "SMC over the list differs from native")
+        check_ma2_gate("ma2 smc kernel graph over the list", smc["two"])
+        mg = gnk_kernel.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
+        gnk_runs = {}
+        for name in ("native", "two"):
+            et.set_client(clients[name])
+            gnk_distance.launches = 0
+            gnk_runs[name], wall = _timed(lambda: et.Rejection(
+                mg["d"], batch_size=GNK_BATCH, seed=BACKENDS_SEED).sample(
+                1000, n_sim=GNK_LIST_BATCHES * GNK_BATCH, bar=False))
+            check(gnk_distance.launches == GNK_LIST_BATCHES,
+                  f"g-and-k on {name}: K2 {gnk_distance.launches} times")
+            out[f"list_gnk_{name}_wall_s"] = wall
+        launches["list gnk"] = gnk_distance.launches
+        check_equal_samples(gnk_runs["two"], gnk_runs["native"],
+                            "g-and-k rejection over the list")
+
+        # the helpers boot while (a)'s untimed checks run; nothing above
+        # ran beside them
+        workers = [_start_cluster_worker(
+            cluster.address, Path(tmp.name) / f"worker{i}.log")
+            for i in range(2)]
+        helpers += workers
+        ranks = _start_multihost(tmp.name, device)
+        helpers += ranks
+        pool = et.MultiprocessingBackend(POOL_PROCESSES, device=device)
+        # thunks run at get_result, so the warm-up and the probes go to
+        # the executor itself, all in flight at once
+        boot = [pool._pool.submit(time.sleep, 0)
+                for _ in range(POOL_PROCESSES)]
+
+        def std_normal(x):
+            return -0.5 * torch.sum(x * x, dim=-1)
+
+        # NUTS, BSL and ROMC run on the list's first device: the
+        # one-device runs, bit for bit
+        x0s = np.linspace(-1, 1, NUTS_CHAINS)[:, None] * np.ones((1, 2))
+        et.set_client("native", device=device)
+        chains = {name: nuts_chains(NUTS_ITERS, x0s, std_normal, seed=3,
+                                    mesh=mesh, device=device)
+                  for name, mesh in (("single", None), ("two", two.mesh))}
+        check(np.array_equal(chains["two"], chains["single"]),
+              "NUTS over the list differs from one device")
+        flat = chains["single"][:, NUTS_ITERS // 2:].reshape(-1, 2)
+        check(bool(np.all(np.abs(flat.mean(0)) < 0.15)
+                   and np.all(np.abs(flat.std(0) - 1) < 0.2)),
+              f"NUTS: mean {flat.mean(0)}, sd {flat.std(0)}")
+        m4 = ma2.get_model(seed_obs=4)
+        bsl, romc = {}, {}
+        for name, client in (("native", et.NativeBackend(device)),
+                             ("two", two)):
+            et.set_client(client)
+            bsl[name] = et.BSL(
+                m4, n_sim_round=300, feature_names=["S1", "S2"],
+                seed=4).sample(120, sigma_proposals=np.diag([.05, .05]),
+                               params0=np.array([[.6, .2]]), burn_in=20,
+                               fused=True, bar=False)
+            r = et.ROMC(m4["d"], bounds=[(-2, 2), (-1, 1)], seed=1)
+            r.solve_problems(n1=20, seed=2)
+            eps = r.compute_eps(quantile=0.9)
+            check(eps < 0.1, f"ROMC {name}: eps {eps}")
+            r.estimate_regions(eps_filter=0.05)
+            romc[name] = r.sample(n2=20, seed=3)
+        check(np.array_equal(bsl["two"].samples_array,
+                             bsl["native"].samples_array),
+              "BSL over the list differs from native")
+        check(np.array_equal(romc["two"].samples_array,
+                             romc["native"].samples_array)
+              and np.array_equal(romc["two"].weights,
+                                 romc["native"].weights),
+              "ROMC over the list differs from native")
+        log(f"backends (a): SMC {smc['two'].n_batches} batches equal (walls "
+            f"in s {smc_walls}), g-and-k {GNK_LIST_BATCHES} batches equal; "
+            "NUTS, BSL and ROMC over the list equal to one device")
+
+        # every helper booted and idle before anything is timed
+        for f in boot:
+            f.result(timeout=120)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and (
+                len(cluster._workers) < 2
+                or not all((Path(tmp.name) / f"ready{r}").exists()
+                           for r in range(2))):
+            cluster._absorb_joined()
+            time.sleep(0.05)
+        check(len(cluster._workers) == 2, "the cluster workers never "
+              "attached")
+        check(all((Path(tmp.name) / f"ready{r}").exists()
+                  for r in range(2)), "the multihost ranks never booted")
+
+        # (b) the process pool: each worker first runs one probe of each
+        # graph (its first task on it), then the timed runs
+        mh = host_model()
+        mp_ = ma2.get_model(seed_obs=SEED_OBS)
+        probes = {}
+        for name, m_, bs in (("host", mh, HOST_BATCH),
+                             ("ma2_plain", mp_, POOL_PLAIN_BATCH)):
+            prog = compile_program(m_, ("d",), device=device)
+            until = time.time() + 3.0
+            futures = [pool._pool.submit(pool_probe, prog, BACKENDS_SEED,
+                                         bs, until)
+                       for _ in range(POOL_PROCESSES)]
+            probes[name] = [f.result(timeout=120) for f in futures]
+            check(len({p["pid"] for p in probes[name]}) == POOL_PROCESSES,
+                  f"the {name} probes ran on "
+                  f"{len({p['pid'] for p in probes[name]})} workers")
+            parts = {k: [p[k] for p in probes[name]]
+                     for k in probes[name][0] if k != "pid"}
+            out[f"pool_{name}_task_parts_s"] = parts
+            log(f"backends (b): a pool worker's {name} task parts in s: "
+                f"{parts}")
+        host = {}
+        kw = dict(n_sim=HOST_BATCHES * HOST_BATCH)
+        for name, client in (("native", et.NativeBackend(device)),
+                             ("pool", pool)):
+            et.set_client(client)
+            host[name], wall = _timed(lambda: et.Rejection(
+                mh["d"], batch_size=HOST_BATCH, seed=BACKENDS_SEED).sample(
+                1000, bar=False, **kw))
+            out[f"host_{name}_sims_per_s"] = kw["n_sim"] / wall
+        check_equal_samples(host["pool"], host["native"],
+                            "all-host graph through the pool")
+        plain = {}
+        kw = dict(n_sim=POOL_PLAIN_BATCHES * POOL_PLAIN_BATCH)
+        for name, client in (("native cpu", et.NativeBackend("cpu")),
+                             ("pool", pool)):
+            et.set_client(client)
+            plain[name], wall = _timed(lambda: et.Rejection(
+                mp_["d"], batch_size=POOL_PLAIN_BATCH,
+                seed=BACKENDS_SEED).sample(500, bar=False, **kw))
+            out[f"ma2_plain_{name.replace(' ', '_')}_sims_per_s"] = \
+                kw["n_sim"] / wall
+        check_equal_samples(plain["pool"], plain["native cpu"],
+                            "MA2 plain graph through the pool")
+        log(f"backends (b): pool of {POOL_PROCESSES}, warm: all-host graph "
+            f"{HOST_BATCHES} x 2**16 {out['host_pool_sims_per_s']!r} sims/s "
+            f"against native {out['host_native_sims_per_s']!r}, equal; MA2 "
+            f"plain graph {POOL_PLAIN_BATCHES} x 2**14 "
+            f"{out['ma2_plain_pool_sims_per_s']!r} sims/s against native "
+            f"on the CPU {out['ma2_plain_native_cpu_sims_per_s']!r}, equal")
+        pool.close()
+        pool = None
+
+        # (c) the cluster with two workers, each warmed by a batch
+        et.set_client(cluster)
+        et.Rejection(mh["d"], batch_size=HOST_BATCH, seed=1).sample(
+            100, n_sim=2 * HOST_BATCH, bar=False)
+        farmed, wall = _timed(lambda: et.Rejection(
+            mh["d"], batch_size=HOST_BATCH, seed=BACKENDS_SEED).sample(
+            1000, n_sim=HOST_BATCHES * HOST_BATCH, bar=False))
+        out["host_cluster_sims_per_s"] = HOST_BATCHES * HOST_BATCH / wall
+        check_equal_samples(farmed, host["native"],
+                            "all-host graph through the cluster")
+        rej = et.Rejection(mh["d"], batch_size=HOST_BATCH, seed=7)
+        rej.set_objective(100, n_sim=KILL_BATCHES * HOST_BATCH)
+        for i in range(KILL_BATCHES):
+            rej.batches.submit(rej.prepare_new_batch(i))
+        assigned = {id(w): [cluster._tasks[t].batch_index
+                            for t in w.inflight] for w in cluster._workers}
+        workers[0].kill()          # one worker dies with a batch in flight
+        workers[0].wait()
+        t_kill = time.perf_counter()
+        got, done_at = {}, {}
+        for _ in range(KILL_BATCHES):
+            batch, idx = rej.batches.wait_next()
+            got[idx] = batch
+            done_at[idx] = time.perf_counter() - t_kill
+        check(len(cluster._workers) == 1, "the killed worker was not "
+              "dropped")
+        lost = [i for w, idx in assigned.items()
+                if w != id(cluster._workers[0]) for i in idx]
+        check(len(lost) > 0, "the killed worker held no batch")
+        reassigned_s = max(done_at[i] for i in lost)
+        et.set_client("native", device=device)
+        ref = et.Rejection(mh["d"], batch_size=HOST_BATCH, seed=7)
+        ref.set_objective(100, n_sim=KILL_BATCHES * HOST_BATCH)
+        for i in range(KILL_BATCHES):
+            want = ref.batches.compute(i, ref.prepare_new_batch(i))
+            for k, v in want.items():
+                check(torch.equal(got[i][k].to(v.device), v),
+                      f"cluster batch {i} {k} differs after the kill")
+        out["cluster_reassigned_s"] = reassigned_s
+        log(f"backends (c): two workers, warm: all-host graph "
+            f"{out['host_cluster_sims_per_s']!r} sims/s, equal to native; "
+            f"a worker killed mid-run, its batch back {reassigned_s!r} s "
+            f"later, all {KILL_BATCHES} batches equal to native")
+        cluster.close()
+        cluster = None
+
+        # (d) the two-process job, alone on the card
+        (Path(tmp.name) / "go").touch()
+        logs = [p.communicate(timeout=180)[0] for p in ranks]
+        for r, (p, text) in enumerate(zip(ranks, logs)):
+            check(p.returncode == 0, f"multihost rank {r} failed:\n"
+                  f"{text[-3000:]}")
+        et.set_client("native", device=device)
+        want = kernel_rejection(et.NativeBackend(device), MULTIHOST_BATCHES)
+        for r in range(2):
+            got_r = np.load(Path(tmp.name) / f"rank{r}.npy")
+            info = json.loads((Path(tmp.name) / f"rank{r}.json").read_text())
+            check(np.array_equal(got_r, want.samples_array),
+                  f"multihost rank {r} differs from the native run")
+            check(info["launches"] == MULTIHOST_BATCHES // 2,
+                  f"rank {r} launched K1 {info['launches']} times, expected "
+                  f"{MULTIHOST_BATCHES // 2}")
+            launches[f"multihost rank {r}"] = info["launches"]
+            out[f"multihost_rank{r}_sims_per_s"] = \
+                MULTIHOST_BATCHES * KERNEL_BATCH / info["wall_s"]
+        log(f"backends (d): two ranks on cuda:0 over gloo, "
+            f"{MULTIHOST_BATCHES} batches of 2**21: both equal to the "
+            f"one-process run, K1 {MULTIHOST_BATCHES // 2} times each; "
+            f"{out['multihost_rank0_sims_per_s']!r} sims/s on rank 0")
+    finally:
+        et.reset_client()
+        if cluster is not None:
+            cluster.close()
+        if pool is not None:
+            pool.close()
+        for p in helpers:
+            if p.poll() is None:
+                try:
+                    p.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        tmp.cleanup()
+    wall = time.perf_counter() - t_phase
+    log(f"backends phase: {wall!r} s (limit {BACKENDS_LIMIT_S}) on "
+        f"{card_line()}")
+    check(wall < BACKENDS_LIMIT_S, f"the backends phase took {wall} s")
+    out["wall_s"] = wall
+    out["launches"] = launches
+    return out
+
+
 def card_events(events):
     """The kernels, copies and memsets among a profile's averaged events:
     not the spans the profiler draws on the card for a host annotation
@@ -3134,6 +3622,8 @@ def main():
     log(f"pool, persistence/aux and distributions phases: "
         f"{time.perf_counter() - t_new!r} s")
     default_device = phase_default_device()
+    backends = phase_backends(device)
+    main_path["backends"] = backends
 
     log(json.dumps({"main_path": main_path,
                     "merge_ms": {**{k: v for k, v in k1_checks.items()
@@ -3142,9 +3632,17 @@ def main():
                     "adaptive": adaptive,
                     "card": card}))
     pool_launches = main_path["pool"]["launches"]
+    bl = backends["launches"]
+    k1_backends = {
+        "ma2 rejection over the device list": bl["list rejection"],
+        "ma2 smc over the device list": bl["list smc"],
+        "ma2 rejection, cluster master with no worker": bl["cluster local"],
+        "ma2 rejection, multihost rank 0": bl["multihost rank 0"],
+        "ma2 rejection, multihost rank 1": bl["multihost rank 1"]}
     k1_launches = (main_path["kernel graph"]["launches"]
                    + main_path["ma2 smc kernel graph"]["launches"]
-                   + sum(pool_launches.values()))
+                   + sum(pool_launches.values())
+                   + sum(k1_backends.values()))
     k1_bound, k1_by = bound_ms(k1_ops(N_OBS), 12, KERNEL_BATCH)
     k2_bound, k2_by = bound_ms(k2_ops(GNK_N_OBS), 20, GNK_BATCH)
     log(json.dumps({"kernels": [{
@@ -3161,7 +3659,8 @@ def main():
             "ma2 rejection, no device given": default_device["launches"],
             "ma2 pooled rejection": pool_launches["pooled"],
             "ma2 pooled replay": pool_launches["replay"],
-            "ma2 pooled extension": pool_launches["extension"]},
+            "ma2 pooled extension": pool_launches["extension"],
+            **k1_backends},
         "max_abs_err": k1_checks["max_abs_err"],
         "max_rel_err": k1_checks["max_rel_err"],
         "ms": k1_checks["ms"],
@@ -3177,7 +3676,12 @@ def main():
         "route": "cuda",
         "source": "elfi_tpu_torch/csrc/gnk_distance.cu",
         "replaces": "elfi_tpu/ops/pallas_kernels.py:157",
-        "launches": main_path["gnk kernel graph"]["launches"],
+        "launches": (main_path["gnk kernel graph"]["launches"]
+                     + bl["list gnk"]),
+        "launches_by_path": {
+            "gnk rejection kernel graph":
+                main_path["gnk kernel graph"]["launches"],
+            "gnk rejection over the device list": bl["list gnk"]},
         "max_abs_err": k2_checks["max_abs_err"],
         "max_rel_err": k2_checks["max_rel_err"],
         "ms": k2_checks["ms"],
@@ -3196,4 +3700,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-rank"]:
+        # a helper process of the backends phase, started by that phase
+        sys.exit(multihost_rank(int(sys.argv[2]), *sys.argv[3:8]))
     sys.exit(main())

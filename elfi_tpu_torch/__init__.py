@@ -29,8 +29,12 @@ daycare, scratch assay and BDM), the fused MA2 and g-and-k distance
 kernels, output pools and their replay (``OutputPool``, ``ArrayPool``),
 model persistence (``Model.save``, ``load_model``), regression adjustment,
 model comparison, summary selection, the testbench, profiling
-(``utils.profiling``) and plotting (``visualization``, which imports
-matplotlib only when it draws).
+(``utils.profiling``), plotting (``visualization``, which imports
+matplotlib only when it draws) and the backends beyond one device: the
+device list (``ShardedBackend``), the process pool
+(``MultiprocessingBackend``), the elastic cluster (``ClusterBackend`` and
+``python -m elfi_tpu_torch.worker``), the dask and ipyparallel adapters
+and ``torch.distributed`` farming (``parallel.multihost``).
 """
 
 from .model import (AdaptiveDistance, ComputationContext,  # noqa: F401
@@ -40,8 +44,9 @@ from .model import (AdaptiveDistance, ComputationContext,  # noqa: F401
                     set_default_model)
 from .model.model import load_model  # noqa: F401
 from .ops.distributions import Distribution  # noqa: F401
-from .parallel import (BatchHandler, NativeBackend, get_client,  # noqa: F401
-                       reset_client, set_client)
+from .parallel import (BatchHandler, ClusterBackend,  # noqa: F401
+                       MultiprocessingBackend, NativeBackend, ShardedBackend,
+                       get_client, reset_client, set_client)
 from .methods import (AdaptiveDistanceSMC,  # noqa: F401
                       AdaptiveThresholdSMC, BayesianOptimization, BOLFI,
                       BOLFIRE, BolfireSample, BolfiSample, BSL, BslSample,

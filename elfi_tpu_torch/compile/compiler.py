@@ -76,6 +76,13 @@ class CompiledProgram:
         self.outputs = tuple(outputs)
         self.override_names = frozenset(override_names)
         self.device = torch.device(device)
+        #: the program's identity for caches outside the model (a worker's
+        #: programs, the device list's siblings): the adaptive-holder
+        #: versions are in it because the model's revision misses them,
+        #: and the device is not, so a worker keys its CPU copy by it
+        self.cache_key = (model.revision, self.outputs,
+                          tuple(sorted(override_names)),
+                          _adaptive_versions(model))
         for o in self.outputs:
             if o not in model.dag:
                 raise ValueError(f"Unknown output node {o!r}")
@@ -99,6 +106,29 @@ class CompiledProgram:
                         for n in self.order)
         self._observed = {}
         self._traceables = {}
+
+    # programs ship to pool and cluster workers: the observed tensors (on
+    # the device) and the per-batch closures stay in this process; the
+    # model pickles to the CPU without its program cache
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d["_observed"] = {}
+        d["_traceables"] = {}
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+
+    def on(self, device):
+        """This program's outputs and overrides compiled for ``device``
+        (this program itself when it is already there): how a worker runs
+        a program it was sent on its own CPU, and how the device list
+        runs a batch on another device."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return compile_program(self.model, self.outputs,
+                               tuple(self.override_names), device=device)
 
     # -- observed subgraph (computed once, kept on the device) ---------------
     def observed_value(self, name):

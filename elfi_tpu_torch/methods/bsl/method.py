@@ -28,7 +28,7 @@ import torch
 
 from ...compile.compiler import compile_program
 from ...model.extensions import ModelPrior
-from ...parallel.backends import NativeBackend
+from ...parallel.backends import NativeBackend, ShardedBackend
 from ...utils.rng import fold_in, generator
 from ..base import ModelBased
 from ..results import BslSample
@@ -77,8 +77,9 @@ class BSL(ModelBased):
         device from one host loop that never waits for the device
         (:meth:`_run_fused`).  Eligible when the estimator has a device
         form (standard, Warton, unbiased), there is no misspecification
-        adjustment, ``batch_size == n_sim_round``, the backend is native
-        and the model has no host nodes.
+        adjustment, ``batch_size == n_sim_round``, the backend is native or
+        a device list (the chain runs on its first device) and the model
+        has no host nodes.
         """
         self.sigma_proposals = np.atleast_2d(sigma_proposals)
         self.param_names = param_names
@@ -99,7 +100,8 @@ class BSL(ModelBased):
             else traceable_likelihood(self.likelihood, device=self.device)
         eligible = (loglik_t is not None and self.pool is None
                     and self.batch_size == self.n_sim_round
-                    and isinstance(self.client, NativeBackend)
+                    and isinstance(self.client, (NativeBackend,
+                                                 ShardedBackend))
                     and not kwargs)
         prog = None
         if eligible:

@@ -440,7 +440,8 @@ def nuts_chains(n_iter, x0s, target, n_adapt=None, target_prob=0.6,
     """Run several NUTS chains as one batch on the device; returns
     (n_chains, n_iter, d).  ``target_args`` are passed to
     ``target(x, *target_args)``.  ``mesh`` is accepted for the JAX
-    package's API and ignored: the port runs on one device.  ``capture``
+    package's API and ignored: the chains' step is bound by the host's
+    launches, which a split over devices would only multiply.  ``capture``
     (default: on a CUDA device) replays the step as a CUDA graph; the
     draws are the same either way."""
     device = _device_of(target_args, device)

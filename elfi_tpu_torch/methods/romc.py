@@ -622,7 +622,8 @@ class RomcPosterior:
     The region objectives are the problems' rows of ``traceable_objective``
     (``rows``: the problem of each region), the local quadratic fits
     (``local_coeffs``) or the stacked GP surrogates (``surrogate_fns`` and
-    ``surrogate_aux``).  ``mesh`` is accepted and ignored: one card."""
+    ``surrogate_aux``).  ``mesh`` is accepted and ignored: one device.
+    ``prior=None`` puts the posterior on the global backend's device."""
 
     def __init__(self, regions, objectives, objectives_actual=None,
                  objectives_surrogate=None, objectives_local=None,
@@ -647,7 +648,7 @@ class RomcPosterior:
         self.dim = prior.dim if prior is not None else None
         self.partition = None
         self.device = prior.device if prior is not None else \
-            torch.device("cpu")
+            resolve_device(None)
         self._tr_obj = traceable_objective
         self._rows = None if rows is None else np.asarray(rows, np.int64)
         self._local_coeffs = None if local_coeffs is None else \

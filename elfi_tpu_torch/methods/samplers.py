@@ -30,7 +30,7 @@ from ..compile.compiler import compile_program
 from ..model.extensions import ModelPrior
 from ..model.model import AdaptiveDistance
 from ..ops import topk
-from ..parallel.backends import NativeBackend
+from ..parallel.backends import NativeBackend, ShardedBackend
 from ..utils import get_sub_seed
 from ..utils.rng import fold_in, generator
 from .base import Sampler, _ProgressBar
@@ -190,13 +190,14 @@ class Rejection(Sampler):
         """
         self.bar = bar
         eligible = (self.pool is None and not self.adaptive
-                    and isinstance(self.client, NativeBackend)
+                    and isinstance(self.client, (NativeBackend,
+                                                 ShardedBackend))
                     and not kwargs)
         if fused is None:
             fused = eligible
         if fused and not eligible:
             raise ValueError("fused=True requires: no pool, no adaptive "
-                             "distance, native backend")
+                             "distance, native or sharded backend")
         self.set_objective(n_samples, threshold=threshold, quantile=quantile,
                            n_sim=n_sim)
         prog = compile_program(self.model, tuple(self.output_names),
@@ -222,24 +223,43 @@ class Rejection(Sampler):
         ``fn(batch_index) -> {node: tensor}`` whose values replace those
         nodes; ``prog`` must declare them as overrides.
         ``state["n_batches"]`` counts this run's batches only.
+
+        Under a :class:`ShardedBackend` batch ``i`` runs whole on device
+        ``i % n_devices`` (its overrides copied there), each device merges
+        its own batches into its own top-N, and the last merge
+        (:func:`~elfi_tpu_torch.ops.topk.merge_parts`) keeps the rows and
+        the order of the one-device run: every batch is the native batch,
+        and ties go to the earlier simulation.
         """
         if seed is None:
             seed = self.seed
-        fn = prog.traceable(self.batch_size)
+        devices = getattr(self.client, "mesh", None) or [self.device]
+        D, B = len(devices), self.batch_size
+        fns = [prog.on(dev).traceable(B) for dev in devices]
         disc = self.discrepancy_name
         n = self.objective["n_samples"]
         thr = self._merge_threshold()
-        buffers = None
+        thrs = [thr.to(dev) if isinstance(thr, torch.Tensor) else thr
+                for dev in devices]
+        parts = [None] * D
 
         def run(start, length):
-            nonlocal buffers
-            accs = []
+            accs = [[] for _ in devices]
             for i in range(start_index + start, start_index + start + length):
-                out = fn(seed, i, overrides_spec(i) if overrides_spec else {})
-                if buffers is None:
-                    buffers = topk.init_buffers(n, out, disc)
-                buffers, acc = topk.merge_scan(buffers, out, thr, disc)
-                accs.append(acc)
+                k = i % D
+                dev = devices[k]
+                ov = overrides_spec(i) if overrides_spec else {}
+                out = fns[k](seed, i, {name: v.to(dev)
+                                       for name, v in ov.items()})
+                if D > 1:      # the global simulation index of each row
+                    out = dict(out, __pos=torch.arange(
+                        i * B, (i + 1) * B, device=dev))
+                if parts[k] is None:
+                    parts[k] = topk.init_buffers(n, out, disc)
+                    if D > 1:
+                        parts[k]["__pos"].fill_(-1)
+                parts[k], acc = topk.merge_scan(parts[k], out, thrs[k], disc)
+                accs[k].append(acc)
             return accs
 
         pb = _ProgressBar() if self.bar else None
@@ -258,7 +278,7 @@ class Rejection(Sampler):
             while accepted < n and done < _MAX_BATCHES:
                 accs = run(done, _FUSED_CHUNK)
                 done += _FUSED_CHUNK
-                accepted += int(torch.stack(accs).sum())
+                accepted += sum(int(torch.stack(a).sum()) for a in accs if a)
                 if pb:
                     pb.update(min(accepted, n), n)
             self.state["n_accepted"] = accepted
@@ -272,7 +292,8 @@ class Rejection(Sampler):
             pb.finish()
         self.state["n_batches"] = done
         self.state["n_sim"] = done * self.batch_size
-        self.state["samples"] = buffers
+        self.state["samples"] = topk.merge_parts(
+            [p for p in parts if p is not None], n, self.device)
         self.objective["n_batches"] = done
 
     def plot_state(self, **options):
@@ -385,7 +406,8 @@ class SMC(Sampler):
 
     def _resolve_fused(self, fused, kwargs):
         eligible = (self._fused_capable and self.pool is None
-                    and isinstance(self.client, NativeBackend)
+                    and isinstance(self.client, (NativeBackend,
+                                                 ShardedBackend))
                     and not kwargs)
         prog = None
         if eligible:
@@ -396,7 +418,8 @@ class SMC(Sampler):
             fused = eligible
         if fused and not eligible:
             raise ValueError("fused=True requires: no adaptive distance, "
-                             "no pool, native backend, no host nodes")
+                             "no pool, native or sharded backend, no host "
+                             "nodes")
         return fused, prog
 
     def _fused_advance_round(self):

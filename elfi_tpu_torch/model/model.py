@@ -309,6 +309,20 @@ class NodeReference:
                                   device=device)
         return out[self.name]
 
+    def become(self, other):
+        """Replace this node with ``other``'s state and parents in place;
+        ``other`` is removed and its observed entry, if any, carried over
+        (reference ``elfi_model.py:658-700``)."""
+        dag = self.model.dag
+        new_parents = dag.parents(other.name)
+        dag.nodes[self.name] = dict(dag.nodes[other.name])
+        dag.set_parents(self.name, new_parents)
+        dag.remove_node(other.name)
+        if other.name in self.model.observed:
+            self.model.observed[self.name] = \
+                self.model.observed.pop(other.name)
+        self.model._invalidate_cache()
+
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name!r})"
 

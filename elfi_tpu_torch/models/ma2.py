@@ -73,7 +73,7 @@ class CustomPrior2(Distribution):
         t1 = torch.as_tensor(t1)
         locs = torch.maximum(-a - t1, -a + t1)
         scales = a - locs
-        shape = torch.broadcast_shapes((size,), t1.shape)
+        shape = np.broadcast_shapes((size,), t1.shape)
         u = torch.rand(shape, generator=generator, device=t1.device)
         return locs + scales * u
 

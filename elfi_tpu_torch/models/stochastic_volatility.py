@@ -22,7 +22,7 @@ from ..ops.distributions import levy_stable
 from ._observed import load_observed_setting
 from ._stats import batch_param, quantiles
 
-__all__ = ["log_vol_from_noise", "svm_from_noise",
+__all__ = ["log_vol", "shock_term", "log_vol_from_noise", "svm_from_noise",
            "alpha_stochastic_volatility_model", "get_model",
            "observed_data", "kurt", "skew"]
 
@@ -45,6 +45,30 @@ def log_vol_from_noise(mu, phi, sigma, z0, ws, prev_x=None):
         x = mu + phi * (x - mu) + sigma * w
         xs.append(x)
     return torch.stack(xs, dim=1)
+
+
+def log_vol(mu, phi, sigma, n_obs, batch_size=1, generator=None,
+            prev_x=None):
+    """AR(1) log-volatilities in mean/difference form; (batch, n_obs) on
+    ``generator``'s device: the normals drawn, then
+    :func:`log_vol_from_noise`."""
+    device = generator.device
+    z0 = torch.randn((batch_size,), generator=generator, device=device)
+    ws = torch.randn((n_obs - 1, batch_size), generator=generator,
+                     device=device)
+    return log_vol_from_noise(mu, phi, sigma, z0, ws, prev_x)
+
+
+def shock_term(alpha, beta, kappa, eta, n_obs, batch_size=1, generator=None):
+    """Alpha-stable shocks (S0, location ``eta``, scale ``kappa``);
+    (batch, n_obs) on ``generator``'s device: the angles and exponentials
+    drawn, then :meth:`levy_stable.transform`."""
+    U, W = levy_stable.draw((batch_size, n_obs), generator)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32,
+                            device=U.device).reshape(-1, 1)
+    beta = torch.as_tensor(beta, dtype=torch.float32,
+                           device=U.device).reshape(-1, 1)
+    return levy_stable.transform(U, W, alpha, beta, eta, kappa)
 
 
 def svm_from_noise(alpha, beta, z0, ws, U, W, kappa=1., eta=0., mu=0.,

@@ -54,11 +54,11 @@ def _shape(p):
 def _draw_shape(size, *params):
     """Result shape for a univariate draw of ``size`` with given params.
     ``size`` may be an int (batch length) or an explicit shape tuple."""
-    b = torch.broadcast_shapes(*[_shape(p) for p in params]) if params \
+    b = np.broadcast_shapes(*[_shape(p) for p in params]) if params \
         else ()
     b = tuple(b)
     if isinstance(size, (tuple, list)):
-        return tuple(torch.broadcast_shapes(tuple(size), b))
+        return tuple(np.broadcast_shapes(tuple(size), b))
     if b == ():
         return (size,)
     if b[0] == size:

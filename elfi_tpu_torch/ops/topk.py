@@ -19,7 +19,7 @@ import math
 import torch
 
 __all__ = ["sort_key", "accept_mask", "make_merge_fn", "init_buffers",
-           "merge_core", "merge_scan"]
+           "merge_core", "merge_scan", "merge_parts"]
 
 
 def sort_key(d):
@@ -83,3 +83,21 @@ def merge_scan(buffers, batch, threshold, discrepancy_name):
 def make_merge_fn(discrepancy_name):
     """Standalone merge for the batch-at-a-time path."""
     return functools.partial(merge_core, discrepancy_name=discrepancy_name)
+
+
+def merge_parts(parts, n, device):
+    """The top-N over several buffers, on ``device``: the device list's
+    last merge.  Each buffer's rows carry their global simulation index in
+    ``"__pos"`` (-1 on the initial padding), and the result keeps the rows
+    and the order of one merge over every batch in turn: ascending key,
+    ties to the earlier simulation, the padding before any rejected row.
+    A single buffer without ``"__pos"`` is returned as it is."""
+    if not parts:
+        return None
+    if len(parts) == 1 and "__pos" not in parts[0]:
+        return {k: v.to(device) for k, v in parts[0].items()}
+    cat = {k: torch.cat([p[k].to(device) for p in parts]) for k in parts[0]}
+    order = torch.sort(cat.pop("__pos"), stable=True).indices
+    by_key = torch.sort(cat["__key"].index_select(0, order), stable=True)
+    order = order.index_select(0, by_key.indices[:n])
+    return {k: v.index_select(0, order) for k, v in cat.items()}

@@ -115,8 +115,11 @@ def test_requested_device_is_kept(monkeypatch):
     assert et.get_client().device == torch.device("cuda", 0)
     assert et.Rejection(m["d"], batch_size=8).device == \
         torch.device("cuda", 0)
-    with pytest.raises(ValueError):
+    # the device list of every CUDA device: none on this machine
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
         et.set_client("sharded")
+    assert et.set_client("sharded", devices=["cpu"]).device.type == "cpu"
 
 
 @pytest.mark.parametrize("seed_obs", [0, 4, 271])

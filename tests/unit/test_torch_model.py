@@ -112,9 +112,10 @@ def test_flat_namespace_is_the_slice():
     assert names <= public
     for name in names:
         assert getattr(et, name) is not None
-    # no backends beyond one device yet
-    assert not public & {"ClusterBackend", "MultiprocessingBackend",
-                         "ShardedBackend"}
+    # the backends beyond one device, as the JAX package's namespace has
+    for name in ("ClusterBackend", "MultiprocessingBackend",
+                 "ShardedBackend"):
+        assert getattr(et, name) is getattr(et.parallel, name)
     for name in ("LogisticRegression", "GPClassifier", "MaxVar", "RandMaxVar",
                  "ExpIntVar", "BolfirePosterior", "BolfireSample", "BOLFIRE",
                  "ROMC", "NDimBoundingBox", "OptimisationProblem",
@@ -133,7 +134,11 @@ def test_import_leaves_jax_out():
             "elfi_tpu_torch.methods.posteriors, elfi_tpu_torch.ops.special, "
             "elfi_tpu_torch.methods.bolfire, "
             "elfi_tpu_torch.methods.classifier, "
-            "elfi_tpu_torch.methods.romc; "
+            "elfi_tpu_torch.methods.romc, elfi_tpu_torch.worker, "
+            "elfi_tpu_torch.parallel.cluster, "
+            "elfi_tpu_torch.parallel.multihost, "
+            "elfi_tpu_torch.parallel.dask_client, "
+            "elfi_tpu_torch.parallel.ipyparallel_client; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'elfi_tpu.', 'jaxlib')) or "
             "m == 'elfi_tpu']; print(bad); sys.exit(1 if bad else 0)")
