@@ -28,7 +28,22 @@ Phases, each of which raises on failure (exit code != 0):
    ["d"], batch_size=2**17, device="cuda").sample(5000, n_sim=2048 *
    2**17)``, gated at |posterior mean - (0.6, 0.2)| < 0.05.
 5. The same on the MA2 kernel graph (``models.ma2_kernel``) at batch 2**21;
-   K1's launch count must equal the number of batches.
+   K1's launch count must equal the number of batches.  Both graphs' merges
+   must go through the cull kernel (``topn_cull``), counted on every path
+   that merges.
+5a. The merge (``phase_merge``, at most 30 s): (a) the cull kernel against
+   its plain version, bit for bit (keys, index map, every column, the
+   acceptance count), and both against the flat merge, on 32 merges at
+   each of 2**17 and 2**21 rows, n 5000 (``merge_cases``: a fresh buffer,
+   candidate counts just above and well above the kernel's width, exact
+   ties at the N-th key, NaN and +inf distances, a threshold rejecting
+   everything, a partly +inf buffer, a 2-D distance under a vector
+   threshold, an int64 ``__pos`` and a (B, 2) column); (b) the fused MA2
+   rejection on both graphs at the main path's point under the chosen
+   merge settings equal to the flat merge with no unroll, gated, its
+   quantile-mode loop under ``torch.cuda.set_sync_debug_mode("error")``;
+   (c) the kernel's time at n/16, width and 4 x width candidates, its
+   plain version's, the flat merge's and ``torch.topk``'s at 2**21.
 6. Hold the g-and-k distance kernel (K2) against its plain version: the
    same normals at 2**16 and 2**21 simulations and n_obs 17, 50 and 64
    (max relative error <= 1e-5), its sorting network against
@@ -509,6 +524,32 @@ def time_ms(fn, warmup=3, reps=25):
     return statistics.median(times)
 
 
+# cycles of the spin kernel that holds the card while the host queues a
+# timed call (about 2.5 ms at the 1.98 GHz boost clock)
+SPIN_CYCLES = 5_000_000
+
+
+def queued_ms(fn, warmup=3, reps=25):
+    """Median device time of ``fn()`` in ms with its launches queued ahead:
+    a spin kernel holds the card while the host queues the start event,
+    ``fn``'s launches and the end event, so the host's time between
+    launches is not counted (``time_ms`` counts it, for a call that
+    launches several kernels).  ``fn`` must not wait for the card."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -780,6 +821,7 @@ def check_sample(res, batch_size, name):
 def phase_main_path(device):
     from elfi_tpu_torch.models import ma2, ma2_kernel
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
     out = {}
     # warm-up: allocator and generators, two batches each
     for mod, bs in ((ma2, PLAIN_BATCH), (ma2_kernel, KERNEL_BATCH)):
@@ -793,19 +835,303 @@ def phase_main_path(device):
             ("plain graph", ma2, PLAIN_BATCH, 0),
             ("kernel graph", ma2_kernel, KERNEL_BATCH,
              math.ceil(N_SIM / KERNEL_BATCH))):
-        ma2_distance.launches = 0
+        ma2_distance.launches = topn_cull.launches = 0
         res, dt = timed_sample(mod.get_model(seed_obs=SEED_OBS)["d"], bs,
                                N_SAMPLES, N_SIM, device)
         launches = ma2_distance.launches
+        cull = topn_cull.launches
         means = check_sample(res, bs, name)
         sims_s = res.n_sim / dt
         log(f"{name}: batch {bs}, {res.n_batches} batches, {res.n_sim} sims "
             f"in {dt!r} s = {sims_s!r} sims/s; ma2_distance launches "
-            f"{launches} (expected {expect})")
+            f"{launches} (expected {expect}); topn_cull launches {cull}")
         check(launches == expect, f"{name}: ma2_distance launched "
               f"{launches} times, expected {expect}")
+        check(cull > 0, f"{name}: the merge never went through topn_cull")
         out[name] = dict(seconds=dt, sims_per_s=sims_s, launches=launches,
-                         means=means.tolist(), n_batches=res.n_batches)
+                         merge_launches=cull, means=means.tolist(),
+                         n_batches=res.n_batches)
+    return out
+
+
+MERGE_BATCHES = (PLAIN_BATCH, KERNEL_BATCH)
+MERGE_STEADY = 14        # uniform batches of the steady state, per size
+MERGE_LIMIT_S = 30.0
+
+
+def _bits(x):
+    """The bytes of ``x``: bitwise equality, NaN included."""
+    return x.contiguous().view(torch.uint8)
+
+
+def merge_cases(device, batch, n, width, seed):
+    """The merges phase_merge holds the cull kernel to, in order: yields
+    (case, buffers, batch, threshold, candidates expected or None), each
+    input buffer the flat merge's after the cases before.  Three streams,
+    32 merges: (1) a 1-D distance carrying t1 (a strided column), t2 (B, 2)
+    and an int64 ``__pos``: a fresh buffer, a candidate count just above
+    and well above ``width``, exact ties at the N-th key and at other
+    buffer keys, steady batches (every fourth with NaN and +inf
+    distances), a threshold that rejects everything, a one-element
+    threshold tensor; (2) a threshold that keeps the buffer partly +inf;
+    (3) a 2-D distance under a vector threshold."""
+    from elfi_tpu_torch.ops import topk
+    g = torch.Generator(device=device).manual_seed(seed)
+    pos = [0]
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    def columns(d):
+        b = d.shape[0]
+        pair = torch.randn((b, 2), generator=g, device=device)
+        out = {"d": d, "t1": pair[:, 0],
+               "t2": torch.randn((b, 2), generator=g, device=device),
+               "__pos": torch.arange(pos[0], pos[0] + b, device=device)}
+        pos[0] += b
+        return out
+
+    def below(kth, count):
+        """Uniform distances in [kth, 1) with ``count`` rows below kth."""
+        d = kth + (1 - kth) * rand(batch)
+        rows = torch.randperm(batch, generator=g, device=device)[:count]
+        d[rows] = kth * 0.999 * rand(count)
+        return d
+
+    def merged(bufs, b, thr):
+        return topk.merge_core(bufs, b, thr, "d")[0]
+
+    b = columns(rand(batch))
+    bufs = topk.init_buffers(n, b, "d")
+    yield "fresh buffer", bufs, b, math.inf, batch
+    bufs = merged(bufs, b, math.inf)
+    for case, count in (("count just above the width", width + width // 4),
+                        ("count well above the width", 4 * width + 123)):
+        kth = float(bufs["__key"][n - 1])
+        b = columns(below(kth, count))
+        yield case, bufs, b, math.inf, count
+        bufs = merged(bufs, b, math.inf)
+    kth = float(bufs["__key"][n - 1])
+    d = below(kth, width // 2)
+    d[torch.randperm(batch, generator=g, device=device)[:batch // 4]] = kth
+    rows = torch.randperm(batch, generator=g, device=device)[:37]
+    d[rows] = bufs["__key"][torch.randint(0, n - 1, (37,), generator=g,
+                                          device=device)]
+    b = columns(d)
+    yield "ties at the N-th key and at buffer keys", bufs, b, math.inf, None
+    bufs = merged(bufs, b, math.inf)
+    for s in range(MERGE_STEADY):
+        d = rand(batch)
+        if s % 4 == 3:
+            d[torch.randperm(batch, generator=g, device=device)[
+                :batch // 8]] = math.nan
+            d[torch.randperm(batch, generator=g, device=device)[
+                :batch // 16]] = math.inf
+        b = columns(d)
+        yield f"steady {s}", bufs, b, math.inf, None
+        bufs = merged(bufs, b, math.inf)
+    b = columns(rand(batch))
+    yield "threshold rejecting everything", bufs, b, -1.0, 0
+    thr = torch.tensor([0.5], device=device)
+    b = columns(rand(batch))
+    yield "one-element threshold tensor", bufs, b, thr, None
+
+    thr = float(np.float32(n / 8 / batch))
+    b = columns(rand(batch))
+    bufs = topk.init_buffers(n, b, "d")
+    for s in range(6):
+        yield f"partly +inf buffer {s}", bufs, b, thr, None
+        bufs = merged(bufs, b, thr)
+        b = columns(rand(batch))
+
+    thr = torch.tensor([0.9, 0.6], device=device)
+    b = columns(rand(batch, 2))
+    bufs = topk.init_buffers(n, b, "d")
+    for s in range(6):
+        yield f"2-D distance, vector threshold {s}", bufs, b, thr, None
+        bufs = merged(bufs, b, thr)
+        b = columns(rand(batch, 2))
+
+
+def candidates(bufs, b, thr):
+    """The rows of ``b`` whose effective key beats the buffer's N-th."""
+    from elfi_tpu_torch.ops import topk
+    d = b["d"]
+    keys = torch.where(topk.accept_mask(d, thr),
+                       topk.sort_key(d).to(torch.float32), math.inf)
+    return int((keys < bufs["__key"][-1]).sum())
+
+
+def cull_input(device, batch, count, seed):
+    """A full buffer and a main-path batch (d, t1, t2) with ``count`` rows
+    beating its N-th key."""
+    from elfi_tpu_torch.ops import topk
+    g = torch.Generator(device=device).manual_seed(seed)
+    b = {k: torch.rand(batch, generator=g, device=device)
+         for k in ("d", "t1", "t2")}
+    bufs, _ = topk.merge_core(topk.init_buffers(N_SAMPLES, b, "d"), b,
+                              math.inf, "d")
+    kth = float(bufs["__key"][-1])
+    d = kth + (1 - kth) * torch.rand(batch, generator=g, device=device)
+    rows = torch.randperm(batch, generator=g, device=device)[:count]
+    d[rows] = kth * 0.999 * torch.rand(count, generator=g, device=device)
+    return bufs, dict(b, d=d)
+
+
+def host_us(fn, reps=200):
+    """Host microseconds to queue ``fn()``, over ``reps`` calls queued
+    back to back after a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def cull_bound_ms(batch, n, columns):
+    """The least time of a merge on this card: the batch's distances read
+    once, the buffer's keys and the chosen rows of each column read once,
+    the keys, the index map and each column's rows written once, over
+    HBM's rate."""
+    nbytes = batch * 4 + n * 4 + n * (4 + 8) + 2 * n * sum(columns)
+    return nbytes / HBM_BYTES_S * 1e3
+
+
+def phase_merge(device):
+    """The culled merge on the card: (a) the cull kernel against its plain
+    version on the sequence of :func:`merge_cases` at both main-path batch
+    sizes, bit for bit (keys, index map, every column, the acceptance
+    count), both against the flat merge; (b) the fused MA2 rejection on
+    both graphs at the main path's point under the chosen settings against
+    the flat merge with no unroll, bit for bit, gated, the quantile-mode
+    loop under ``torch.cuda.set_sync_debug_mode("error")``; (c) times."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods import samplers
+    from elfi_tpu_torch.models import ma2, ma2_kernel
+    from elfi_tpu_torch.ops import topk
+    from elfi_tpu_torch.ops.kernels.topn import (kernel_width, topn_cull,
+                                                 topn_cull_reference)
+    t_phase = time.perf_counter()
+    widths = topk.CULL_SMALL_K
+    width = kernel_width(widths if isinstance(widths, tuple) else (widths,))
+    out = {"width": width, "cull_small_k": widths,
+           "cull_min_batch": topk.CULL_MIN_BATCH,
+           "merge_variant": topk.MERGE_VARIANT}
+
+    # (a) bit for bit on every case
+    counts = {}
+    for batch in MERGE_BATCHES:
+        cases = 0
+        for case, bufs, b, thr, expect in merge_cases(
+                device, batch, N_SAMPLES, width, seed=batch):
+            count = candidates(bufs, b, thr)
+            if expect is not None:
+                check(count == expect, f"merge case {case} at {batch}: "
+                      f"{count} candidates, expected {expect}")
+            got, idx, acc = topn_cull(bufs, b, thr, "d", widths)
+            want, widx, wacc = topn_cull_reference(bufs, b, thr, "d",
+                                                   widths)
+            flat, facc = topk.merge_core(bufs, b, thr, "d")
+            what = f"topn_cull, case {case!r} at B={batch}"
+            check(torch.equal(idx, widx), f"{what}: index map differs")
+            check(int(acc) == int(wacc) == int(facc),
+                  f"{what}: acceptance {int(acc)}, plain {int(wacc)}, "
+                  f"flat {int(facc)}")
+            check(set(got) == set(want) == set(flat), f"{what}: columns")
+            for k in want:
+                check(got[k].dtype == want[k].dtype
+                      and got[k].shape == want[k].shape
+                      and torch.equal(_bits(got[k]), _bits(want[k]))
+                      and torch.equal(_bits(got[k]), _bits(flat[k])),
+                      f"{what}: {k} differs")
+            counts[f"{batch}: {case}"] = count
+            cases += 1
+        check(cases >= 32, f"only {cases} merge cases")
+    torch.cuda.synchronize()
+    log(f"merge (a): topn_cull == its plain version == the flat merge, bit "
+        f"for bit (keys, index map, every column, acceptance), on "
+        f"{cases} merges at each of {MERGE_BATCHES} (width {width}); "
+        f"candidates per case {counts}")
+    out["cases_per_batch"] = cases
+    out["max_abs_err"] = 0.0
+
+    # (b) the main path, chosen settings against flat with no unroll
+    for name, mod, bs in (("plain graph", ma2, PLAIN_BATCH),
+                          ("kernel graph", ma2_kernel, KERNEL_BATCH)):
+        node = mod.get_model(seed_obs=SEED_OBS)["d"]
+        saved = topk.MERGE_VARIANT, samplers.FUSED_UNROLL
+        try:
+            topk.MERGE_VARIANT, samplers.FUSED_UNROLL = "flat", 1
+            topn_cull.launches = 0
+            base, wall_flat = timed_sample(node, bs, N_SAMPLES, N_SIM,
+                                           device, seed=2)
+            check(topn_cull.launches == 0, "the flat merge launched the cull")
+        finally:
+            topk.MERGE_VARIANT, samplers.FUSED_UNROLL = saved
+        rej = et.Rejection(node, batch_size=bs, seed=2, device=device)
+        rej._run_fused = sync_guarded(rej._run_fused)
+        topn_cull.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rej.sample(N_SAMPLES, n_sim=N_SIM, bar=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = topn_cull.launches
+        check_equal_samples(res, base, f"merge (b) {name}: chosen settings "
+                            "against flat with no unroll")
+        check_sample(res, bs, f"merge (b) {name}")
+        unroll = samplers._fused_unroll(bs, {k: torch.empty(
+            (1,), dtype=torch.float32) for k in ("d", "t1", "t2")})
+        log(f"merge (b) {name}: equal to the flat merge with no unroll; "
+            f"unroll {unroll}, topn_cull launches {launches}; the quantile "
+            f"loop under the sync guard; wall {wall!r} s against flat "
+            f"{wall_flat!r} s ({N_SIM / wall!r} against {N_SIM / wall_flat!r}"
+            " sims/s)")
+        out[name] = dict(wall_s=wall, flat_wall_s=wall_flat, unroll=unroll,
+                         launches=launches)
+
+    # (c) times at the kernel graph's batch: the cull at three candidate
+    # counts, its plain version (which reads the count on the host), the
+    # flat merge and torch.topk, each call's launches queued ahead; and
+    # the cull's time per call with the host's queueing in it
+    times = {}
+    for label, count in (("n/16", N_SAMPLES // 16), ("width", width),
+                         ("4 width", 4 * width)):
+        bufs, b = cull_input(device, KERNEL_BATCH, count, seed=count)
+        times[label] = queued_ms(lambda: topn_cull(bufs, b, math.inf, "d",
+                                                   widths))
+        if label == "n/16":
+            out["event_ms"] = time_ms(lambda: topn_cull(bufs, b, math.inf,
+                                                        "d", widths))
+            out["plain_ms"] = time_ms(lambda: topn_cull_reference(
+                bufs, b, math.inf, "d", widths))
+            out["flat_ms"] = queued_ms(lambda: topk.merge_core(
+                bufs, b, math.inf, "d"))
+            cat = torch.cat([bufs["__key"], b["d"]])
+            out["library_ms"] = queued_ms(lambda: torch.topk(
+                cat, N_SAMPLES, largest=False, sorted=True))
+            out["host_us"] = {
+                "topn_cull": host_us(lambda: topn_cull(bufs, b, math.inf,
+                                                       "d", widths)),
+                "merge_core": host_us(lambda: topk.merge_core(
+                    bufs, b, math.inf, "d"))}
+    out["ms_by_count"] = times
+    out["ms"] = times["n/16"]
+    out["bound_ms"] = cull_bound_ms(KERNEL_BATCH, N_SAMPLES, (4, 4, 4))
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"merge (c) B={KERNEL_BATCH}, n={N_SAMPLES}: topn_cull "
+        f"{times!r} ms by candidate count (launches queued ahead), "
+        f"{out['event_ms']!r} ms a call with the host's queueing; plain "
+        f"{out['plain_ms']!r}, flat merge {out['flat_ms']!r}, torch.topk "
+        f"{out['library_ms']!r}, bound {out['bound_ms']!r} ms (median of "
+        f"25, CUDA events); host us to "
+        f"queue a merge {out['host_us']!r}; phase "
+        f"{out['wall_s']!r} s (limit {MERGE_LIMIT_S}) on {card_line()}")
+    check(out["wall_s"] < MERGE_LIMIT_S, f"the merge phase took "
+          f"{out['wall_s']} s")
     return out
 
 
@@ -928,6 +1254,7 @@ def phase_gnk_main_path(device):
     """Both g-and-k graphs at scripts/gnk_ab.py's operating point."""
     from elfi_tpu_torch.models import gnk, gnk_kernel
     from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
     graphs = (("gnk plain graph", gnk, 0),
               ("gnk kernel graph", gnk_kernel,
                math.ceil(GNK_N_SIM / GNK_BATCH)))
@@ -937,12 +1264,13 @@ def phase_gnk_main_path(device):
                      GNK_BATCH, N_SAMPLES, 2 * GNK_BATCH, device, seed=0)
     out = {}
     for name, mod, expect in graphs:
-        gnk_distance.launches = 0
+        gnk_distance.launches = topn_cull.launches = 0
         torch.cuda.reset_peak_memory_stats(device)
         m = mod.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
         res, dt = timed_sample(m["d"], GNK_BATCH, N_SAMPLES, GNK_N_SIM,
                                device)
         launches = gnk_distance.launches
+        cull = topn_cull.launches
         peak = torch.cuda.max_memory_allocated(device)
         d = res.outputs["d"]
         check(d.shape == (N_SAMPLES,), f"{name}: d has shape {d.shape}")
@@ -959,15 +1287,16 @@ def phase_gnk_main_path(device):
             f"{float(d[-1])!r}")
         log(f"{name}: batch {GNK_BATCH}, {res.n_batches} batches, "
             f"{res.n_sim} sims in {dt!r} s = {sims_s!r} sims/s; "
-            f"gnk_distance launches {launches} (expected {expect}); peak "
-            f"device memory {peak} bytes")
+            f"gnk_distance launches {launches} (expected {expect}); "
+            f"topn_cull launches {cull}; peak device memory {peak} bytes")
         check(bool(np.all(err < GNK_GATE)),
               f"{name}: g-and-k gate failed: {means}")
         check(launches == expect, f"{name}: gnk_distance launched "
               f"{launches} times, expected {expect}")
+        check(cull > 0, f"{name}: the merge never went through topn_cull")
         out[name] = dict(seconds=dt, sims_per_s=sims_s, launches=launches,
-                         means=means.tolist(), n_batches=res.n_batches,
-                         peak_bytes=peak)
+                         merge_launches=cull, means=means.tolist(),
+                         n_batches=res.n_batches, peak_bytes=peak)
     return out
 
 
@@ -1082,8 +1411,11 @@ def phase_gauss_smc(device):
         return lambda: et.SMC(m["d"], batch_size=GAUSS_BATCH, seed=seed,
                               device=device)
 
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
     timed_smc(make(3), GAUSS_N, thresholds=GAUSS_THRESHOLDS)    # warm-up
+    topn_cull.launches = 0
     res, dt, _ = timed_smc(make(4), GAUSS_N, thresholds=GAUSS_THRESHOLDS)
+    cull = topn_cull.launches
     means = weighted_means(res)
     err = np.abs(means - obs_mean)
     per_round = [int(p.meta["n_batches"]) for p in res.populations]
@@ -1103,10 +1435,12 @@ def phase_gauss_smc(device):
     log(f"gauss2d SMC: weighted means {means.tolist()!r}, observed mean "
         f"{obs_mean.tolist()!r}, |err| {err.tolist()!r} (gate < {GATE})")
     log(f"gauss2d SMC: batch {GAUSS_BATCH}, batches per round {per_round}, "
-        f"{res.n_sim} sims in {dt!r} s = {sims_s!r} sims/s")
+        f"{res.n_sim} sims in {dt!r} s = {sims_s!r} sims/s; topn_cull "
+        f"launches {cull}")
     check(bool(np.all(err < GATE)), f"gauss2d SMC gate failed: {means}")
     return dict(seconds=dt, n_sim=res.n_sim, sims_per_s=sims_s,
                 n_batches=res.n_batches, batches_per_round=per_round,
+                merge_launches=cull,
                 means=means.tolist(), observed_mean=obs_mean.tolist())
 
 
@@ -1127,26 +1461,30 @@ def phase_ma2_smc(device):
     import elfi_tpu_torch as et
     from elfi_tpu_torch.models import ma2, ma2_kernel
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
     out = {}
     for name, mod, kernel in (("ma2 smc plain graph", ma2, False),
                               ("ma2 smc kernel graph", ma2_kernel, True)):
         node = mod.get_model(seed_obs=SEED_OBS)["d"]
-        ma2_distance.launches = 0
+        ma2_distance.launches = topn_cull.launches = 0
         res, dt, _ = timed_smc(
             lambda: et.SMC(node, batch_size=SMC_BATCH, seed=3,
                            device=device),
             500, quantiles=[0.25, 0.25, 0.25])
         launches = ma2_distance.launches
+        cull = topn_cull.launches
         means = check_ma2_gate(name, res)
         per_round = [int(p.meta["n_batches"]) for p in res.populations]
         expect = res.n_batches if kernel else 0
         log(f"{name}: {dt!r} s, batches per round {per_round}; "
-            f"ma2_distance launches {launches} (expected {expect})")
+            f"ma2_distance launches {launches} (expected {expect}); "
+            f"topn_cull launches {cull}")
         check(sum(per_round) == res.n_batches, f"{name}: batch counts")
         check(launches == expect, f"{name}: ma2_distance launched "
               f"{launches} times, expected {expect}")
-        out[name] = dict(seconds=dt, launches=launches, means=means.tolist(),
-                         n_batches=res.n_batches, batches_per_round=per_round)
+        out[name] = dict(seconds=dt, launches=launches, merge_launches=cull,
+                         means=means.tolist(), n_batches=res.n_batches,
+                         batches_per_round=per_round)
     return out
 
 
@@ -2553,8 +2891,9 @@ def phase_pool(device):
     _, ref, ref_wall = timed_rejection(
         lambda: et.Rejection(m["d"], **kw), n_sim=n_a, fused=False)
 
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
     pool = et.OutputPool(["t1", "t2", "d"])
-    ma2_distance.launches = 0
+    ma2_distance.launches = topn_cull.launches = 0
     rej_a, a, wall_a = timed_rejection(
         lambda: et.Rejection(m["d"], pool=pool, **kw), n_sim=n_a)
     launches_a = ma2_distance.launches
@@ -2588,6 +2927,9 @@ def phase_pool(device):
     rej_c, c, wall_c = timed_rejection(
         lambda: et.Rejection(m["d"], pool=pool, **kw), n_sim=n_c)
     launches_c = ma2_distance.launches
+    # a pool runs batch at a time, whose merge is the flat one (as in the
+    # JAX package)
+    pool_cull = topn_cull.launches
     check(launches_c == POOL_EXTRA, f"extension: K1 launched {launches_c} "
           f"times, expected {POOL_EXTRA}")
     check(len(pool) == POOL_BATCHES + POOL_EXTRA,
@@ -2685,6 +3027,7 @@ def phase_pool(device):
     return dict(
         launches={"pooled": launches_a, "replay": launches_b,
                   "extension": launches_c},
+        merge_launches=pool_cull,
         pooless_wall_s=ref_wall, pooled_wall_s=wall_a, replay_wall_s=wall_b,
         extension_wall_s=wall_c, pooled_sims_per_s=n_a / wall_a,
         replay_sims_per_s=n_a / wall_b,
@@ -2997,11 +3340,13 @@ def phase_default_device():
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
     et.reset_client()
     m = ma2_kernel.get_model(seed_obs=SEED_OBS)
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
     rej = et.Rejection(m["d"], batch_size=KERNEL_BATCH, seed=1)
-    ma2_distance.launches = 0
+    ma2_distance.launches = topn_cull.launches = 0
     res = rej.sample(1000, n_sim=8 * KERNEL_BATCH, bar=False)
     torch.cuda.synchronize()
     launches = ma2_distance.launches
+    cull = topn_cull.launches
     where = {rej.device, *(v.device for v in rej.state["samples"].values())}
     log(f"default device: Rejection without device= ran on "
         f"{sorted(map(str, where))}; ma2_distance launches {launches} "
@@ -3012,7 +3357,8 @@ def phase_default_device():
     check(res.samples["t1"].shape == (1000,)
           and bool(np.all(np.isfinite(res.samples_array))),
           "the default device run gave bad samples")
-    return dict(launches=launches, device=str(rej.device))
+    return dict(launches=launches, merge_launches=cull,
+                device=str(rej.device))
 
 
 # -- the backends beyond one device --------------------------------------------
@@ -3171,10 +3517,11 @@ def phase_backends(device):
     from elfi_tpu_torch.models import gnk_kernel, ma2, ma2_kernel
     from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
     from elfi_tpu_torch.parallel.cluster import ClusterBackend
     from scripts.torch_host_graph import get_model as host_model
     t_phase = time.perf_counter()
-    out, launches = {}, {}
+    out, launches, cull = {}, {}, {}
     tmp = tempfile.TemporaryDirectory()
     helpers = []
     mk = ma2_kernel.get_model(seed_obs=SEED_OBS)
@@ -3213,7 +3560,7 @@ def phase_backends(device):
                    "two": two}
         runs, walls = {}, {name: [] for name in clients}
         for name in ("native", "one", "two", "two", "one", "native"):
-            ma2_distance.launches = 0
+            ma2_distance.launches = topn_cull.launches = 0
             runs[name], wall = _timed(lambda c=clients[name]:
                                       kernel_rejection(c, BACKENDS_BATCHES))
             check(ma2_distance.launches == BACKENDS_BATCHES,
@@ -3223,6 +3570,7 @@ def phase_backends(device):
             walls[name].append(wall)
             if name == "two":
                 launches["list rejection"] = ma2_distance.launches
+                cull["list rejection"] = topn_cull.launches
         out["list_rejection_wall_s"] = walls
         for name in ("one", "two"):
             check_equal_samples(runs[name], runs["native"],
@@ -3233,7 +3581,7 @@ def phase_backends(device):
         smc, smc_walls = {}, {"native": [], "two": []}
         for name in ("native", "two", "two", "native"):
             et.set_client(clients[name])
-            ma2_distance.launches = 0
+            ma2_distance.launches = topn_cull.launches = 0
             smc[name], wall = _timed(lambda: et.SMC(
                 mk["d"], batch_size=SMC_BATCH, seed=3).sample(
                 500, quantiles=[0.25, 0.25, 0.25], bar=False))
@@ -3243,6 +3591,7 @@ def phase_backends(device):
             smc_walls[name].append(wall)
             if name == "two":
                 launches["list smc"] = ma2_distance.launches
+                cull["list smc"] = topn_cull.launches
         out["list_smc_wall_s"] = smc_walls
         check(np.array_equal(smc["two"].samples_array,
                              smc["native"].samples_array),
@@ -3252,7 +3601,7 @@ def phase_backends(device):
         gnk_runs = {}
         for name in ("native", "two"):
             et.set_client(clients[name])
-            gnk_distance.launches = 0
+            gnk_distance.launches = topn_cull.launches = 0
             gnk_runs[name], wall = _timed(lambda: et.Rejection(
                 mg["d"], batch_size=GNK_BATCH, seed=BACKENDS_SEED).sample(
                 1000, n_sim=GNK_LIST_BATCHES * GNK_BATCH, bar=False))
@@ -3260,6 +3609,7 @@ def phase_backends(device):
                   f"g-and-k on {name}: K2 {gnk_distance.launches} times")
             out[f"list_gnk_{name}_wall_s"] = wall
         launches["list gnk"] = gnk_distance.launches
+        cull["list gnk"] = topn_cull.launches
         check_equal_samples(gnk_runs["two"], gnk_runs["native"],
                             "g-and-k rejection over the list")
 
@@ -3478,6 +3828,7 @@ def phase_backends(device):
     check(wall < BACKENDS_LIMIT_S, f"the backends phase took {wall} s")
     out["wall_s"] = wall
     out["launches"] = launches
+    out["merge_launches"] = cull
     return out
 
 
@@ -3577,14 +3928,15 @@ def main():
     from elfi_tpu_torch.ops.kernels import _build
     from elfi_tpu_torch.ops.kernels import gnk as k2
     from elfi_tpu_torch.ops.kernels import ma2 as k1
+    from elfi_tpu_torch.ops.kernels import topn
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for built in [pool.submit(k._lib) for k in (k1, k2)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for built in [pool.submit(k._lib) for k in (k1, k2, topn)]:
             built.result()
-    log(f"built K1 and K2 in {time.perf_counter() - t0!r} s (one nvcc "
-        f"each, in parallel)")
+    log(f"built K1, K2 and the cull in {time.perf_counter() - t0!r} s (one "
+        f"nvcc each, in parallel)")
     ptxas = {}
-    for lib in ("ma2_distance", "gnk_distance"):
+    for lib in ("ma2_distance", "gnk_distance", "topn_cull"):
         log(f"nvcc {lib}: {_build.build_log[lib]['seconds']!r} s")
         log(_build.build_log[lib]["log"].strip())
         ptxas[lib] = ptxas_entries(_build.build_log[lib]["log"])
@@ -3600,6 +3952,7 @@ def main():
     k1_checks = phase_kernel_checks(device)
     phase_fused_equals_batchwise(device)
     main_path = phase_main_path(device)
+    merge = phase_merge(device)
     k2_checks = phase_gnk_kernel_checks(device)
     main_path.update(phase_gnk_main_path(device))
     adaptive = phase_adaptive(device)
@@ -3629,6 +3982,7 @@ def main():
                     "merge_ms": {**{k: v for k, v in k1_checks.items()
                                     if k.startswith("merge_ms")},
                                  f"gnk_{GNK_BATCH}": k2_checks["merge_ms"]},
+                    "merge": merge,
                     "adaptive": adaptive,
                     "card": card}))
     pool_launches = main_path["pool"]["launches"]
@@ -3643,6 +3997,27 @@ def main():
                    + main_path["ma2 smc kernel graph"]["launches"]
                    + sum(pool_launches.values())
                    + sum(k1_backends.values()))
+    bm = backends["merge_launches"]
+    cull_by_path = {
+        "ma2 rejection plain graph":
+            main_path["plain graph"]["merge_launches"],
+        "ma2 rejection kernel graph":
+            main_path["kernel graph"]["merge_launches"],
+        "gnk rejection plain graph":
+            main_path["gnk plain graph"]["merge_launches"],
+        "gnk rejection kernel graph":
+            main_path["gnk kernel graph"]["merge_launches"],
+        "ma2 smc plain graph":
+            main_path["ma2 smc plain graph"]["merge_launches"],
+        "ma2 smc kernel graph":
+            main_path["ma2 smc kernel graph"]["merge_launches"],
+        "gauss2d smc": main_path["gauss2d smc"]["merge_launches"],
+        "ma2 rejection, no device given": default_device["merge_launches"],
+        "ma2 pooled rejection, replay and extension":
+            main_path["pool"]["merge_launches"],
+        "ma2 rejection over the device list": bm["list rejection"],
+        "ma2 smc over the device list": bm["list smc"],
+        "gnk rejection over the device list": bm["list gnk"]}
     k1_bound, k1_by = bound_ms(k1_ops(N_OBS), 12, KERNEL_BATCH)
     k2_bound, k2_by = bound_ms(k2_ops(GNK_N_OBS), 20, GNK_BATCH)
     log(json.dumps({"kernels": [{
@@ -3692,6 +4067,21 @@ def main():
         "ops_per_sim": k2_ops(GNK_N_OBS),
         "library_ms": None,
         "ptxas": ptxas["gnk_distance"],
+    }, {
+        "name": "topn_cull",
+        "route": "cuda",
+        "source": "elfi_tpu_torch/csrc/topn_cull.cu",
+        "replaces": "elfi_tpu/ops/topk.py:74 (XLA, not Pallas)",
+        "launches": sum(cull_by_path.values()),
+        "launches_by_path": cull_by_path,
+        "max_abs_err": merge["max_abs_err"],
+        "ms": merge["ms"],
+        "plain_ms": merge["plain_ms"],
+        "bound_ms": merge["bound_ms"],
+        "bound_by": "bytes",
+        "bound_share": merge["bound_ms"] / merge["ms"],
+        "library_ms": merge["library_ms"],
+        "ptxas": ptxas["topn_cull"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

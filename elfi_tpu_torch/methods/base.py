@@ -315,6 +315,7 @@ class _ProgressBar:
 
     def __init__(self, length=50):
         self.length = length
+        self.scaling = 0
 
     def update(self, n, total):
         total = max(total, 1)
@@ -323,6 +324,13 @@ class _ProgressBar:
         bar = "=" * filled + "-" * (self.length - filled)
         print(f"\rProgress [{bar}] {100 * frac:.1f}% Complete",
               end="", flush=True)
+
+    def reinit(self, scaling=0, msg=""):
+        """Start a new stage: store ``scaling`` and print ``msg`` on a new
+        line."""
+        self.scaling = scaling
+        if msg:
+            print(f"\n{msg}")
 
     def finish(self):
         print()

@@ -356,6 +356,17 @@ def make_gp_fns(kernel):
     return fns
 
 
+# the default kernel's machinery under the JAX package's module-level
+# names: ``gp_cross_cov`` is the kernel (acquisitions imported it), the
+# objectives and the restarts' optimiser are the default bundle's
+gp_cross_cov = rbf_bias_kernel
+_DEFAULT_FNS = make_gp_fns(rbf_bias_kernel)
+gp_mean_obj = _DEFAULT_FNS.mean_obj
+gp_neg_lcb_obj = _DEFAULT_FNS.neg_lcb_obj
+gp_neg_lcb_obj_inv = _DEFAULT_FNS.neg_lcb_obj_inv
+optimize_restarts_core = _DEFAULT_FNS.optimize_restarts_core
+
+
 class GPRegression:
     """The GP surrogate of BOLFI (counterpart of the JAX package's
     ``GPRegression``, the reference's ``GPyRegression``).

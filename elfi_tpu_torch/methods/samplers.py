@@ -45,10 +45,55 @@ logger = logging.getLogger(__name__)
 #: batches queued between progress updates, and between the host reads of
 #: the acceptance count in threshold mode.  Not tuned on this hardware.
 _FUSED_CHUNK = 16
+
+#: Merge unroll: the number of consecutive batches (of one device) whose
+#: outputs are CONCATENATED into one top-N merge in the fused loop.  None =
+#: auto (:func:`_fused_unroll`); an int forces the factor.  Bit-identity
+#: with one merge a batch: the merge breaks ties toward the lower
+#: concatenation index, and buffer -> batch_j -> batch_{j+1} is the order
+#: those rows hold across sequential merges.  A chunk of batches ends with
+#: every batch merged (a shorter concatenation for the remainder), so the
+#: acceptance count read per chunk is unchanged.
+#:
+#: scripts/torch_merge_ab.py on an NVIDIA H100 80GB HBM3 at 700.00 W (MA2,
+#: 2**28 simulations, culled merge, best of three walls, averaged over the
+#: four widths): the plain graph at 2**16 goes 0.92e8 (u = 1, where two
+#: widths merge flat) -> 1.35e8, 1.52e8, 1.45e8, 1.62e8 sims/s (u = 2, 4,
+#: 8, 16), at 2**17 1.94e8 -> 2.17e8, 2.14e8, 2.26e8, 2.09e8 (walls spread
+#: up to 2x, device ms a batch 0.487 -> 0.474 at u = 16), at 2**18 flat in
+#: u (2.81e8-2.88e8);
+#: the kernel graph at 2**20 2.51e9 -> 2.89e9 (u = 2).  Each merge costs
+#: the host its launches, so merging fewer times pays wherever the host
+#: bounds the loop; the cap of 2**21 rows a merge stands, and the
+#: batch-size guard moves from the JAX package's 2**18 to 2**20.
+FUSED_UNROLL = None
+_UNROLL_CAND_CAP = 1 << 21   # max concatenated rows per merge
+_UNROLL_MAX = 16
+_UNROLL_MAX_BATCH = 1 << 20  # no unroll above this batch size
+_UNROLL_BYTES_CAP = 256      # no unroll for wide outputs (not measured)
 _MAX_BATCHES = 100_000
 #: folded into a round's seed to key its proposal streams (the JAX
 #: package's constant)
 _PROPOSAL_SALT = 0x9E3779B9
+
+
+def _fused_unroll(batch_size, shapes):
+    """The merge-unroll factor of a fused run: :data:`FUSED_UNROLL` if set;
+    else 1 above :data:`_UNROLL_MAX_BATCH` or for outputs wider than
+    :data:`_UNROLL_BYTES_CAP` bytes a simulation, and otherwise as many
+    batches as fit :data:`_UNROLL_CAND_CAP` rows, at most
+    :data:`_UNROLL_MAX`.  ``shapes`` maps each output to an object with
+    ``.shape`` (batch first) and ``.dtype.itemsize``: a batch's tensors."""
+    if FUSED_UNROLL is not None:
+        return max(1, int(FUSED_UNROLL))
+    if batch_size > _UNROLL_MAX_BATCH:
+        return 1
+    bytes_per_sim = sum(
+        int(np.prod(tuple(v.shape[1:]), dtype=np.int64)) * v.dtype.itemsize
+        for v in shapes.values())
+    if bytes_per_sim > _UNROLL_BYTES_CAP:
+        return 1
+    return int(max(1, min(_UNROLL_MAX, _UNROLL_CAND_CAP // batch_size)))
 
 
 def _float32_threshold(t, device):
@@ -224,6 +269,11 @@ class Rejection(Sampler):
         nodes; ``prog`` must declare them as overrides.
         ``state["n_batches"]`` counts this run's batches only.
 
+        The outputs of :func:`_fused_unroll` consecutive batches of one
+        device go into one :func:`~elfi_tpu_torch.ops.topk.merge_scan`,
+        which takes the culled merge once that device's buffer has taken
+        ``n`` rows.
+
         Under a :class:`ShardedBackend` batch ``i`` runs whole on device
         ``i % n_devices`` (its overrides copied there), each device merges
         its own batches into its own top-N, and the last merge
@@ -242,8 +292,23 @@ class Rejection(Sampler):
         thrs = [thr.to(dev) if isinstance(thr, torch.Tensor) else thr
                 for dev in devices]
         parts = [None] * D
+        # per device: outputs awaiting their merge, and rows merged so far
+        # (merge_scan's ``fresh``)
+        pending = [[] for _ in devices]
+        merged = [0] * D
+        unroll = None
+
+        def merge(k):
+            outs, pending[k] = pending[k], []
+            cat = outs[0] if len(outs) == 1 else {
+                name: torch.cat([o[name] for o in outs]) for name in outs[0]}
+            parts[k], acc = topk.merge_scan(parts[k], cat, thrs[k], disc,
+                                            fresh=merged[k] < n)
+            merged[k] += cat[disc].shape[0]
+            return acc
 
         def run(start, length):
+            nonlocal unroll
             accs = [[] for _ in devices]
             for i in range(start_index + start, start_index + start + length):
                 k = i % D
@@ -251,6 +316,8 @@ class Rejection(Sampler):
                 ov = overrides_spec(i) if overrides_spec else {}
                 out = fns[k](seed, i, {name: v.to(dev)
                                        for name, v in ov.items()})
+                if unroll is None:
+                    unroll = _fused_unroll(B, out)
                 if D > 1:      # the global simulation index of each row
                     out = dict(out, __pos=torch.arange(
                         i * B, (i + 1) * B, device=dev))
@@ -258,8 +325,12 @@ class Rejection(Sampler):
                     parts[k] = topk.init_buffers(n, out, disc)
                     if D > 1:
                         parts[k]["__pos"].fill_(-1)
-                parts[k], acc = topk.merge_scan(parts[k], out, thrs[k], disc)
-                accs[k].append(acc)
+                pending[k].append(out)
+                if len(pending[k]) == unroll:
+                    accs[k].append(merge(k))
+            for k in range(D):      # the remainder: the chunk ends merged
+                if pending[k]:
+                    accs[k].append(merge(k))
             return accs
 
         pb = _ProgressBar() if self.bar else None

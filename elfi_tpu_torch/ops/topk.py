@@ -9,6 +9,11 @@ first ``n`` of a *stable* ascending sort.  Both put NaN last, so the merged
 keys and the gathered rows are bit-identical to the JAX package's for the
 same inputs, and the buffer -> batch concatenation order makes every merge
 schedule (fused loop, batch-at-a-time) select the same rows.
+
+The fused loop's merge (:func:`merge_scan`) takes the threshold-culled
+merge, :func:`merge_core_culled`, for large batches: the same result from
+the few rows that beat the buffer's N-th key, through the CUDA kernel
+``csrc/topn_cull.cu`` on the card (:mod:`.kernels.topn`).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import math
 import torch
 
 __all__ = ["sort_key", "accept_mask", "make_merge_fn", "init_buffers",
-           "merge_core", "merge_scan", "merge_parts"]
+           "merge_core", "merge_core_culled", "merge_scan", "merge_parts"]
 
 
 def sort_key(d):
@@ -73,10 +78,73 @@ def merge_core(buffers, batch, threshold, discrepancy_name):
     return out, ok.sum()
 
 
-def merge_scan(buffers, batch, threshold, discrepancy_name):
-    """Merge used by the fused rejection loop.  Only the flat merge is
-    ported; the JAX package's threshold-culled variant is a tuning step
-    still to be re-derived on this hardware."""
+def merge_core_culled(buffers, batch, threshold, discrepancy_name,
+                      small_k=1024):
+    """Threshold-culled top-N merge, bit-identical to :func:`merge_core`.
+
+    The buffer is sorted, so its last key ``kth`` is the current N-th
+    best, and a batch key ``>= kth`` can never enter it: buffer rows
+    precede batch rows in the flat merge's concatenation, so even an exact
+    tie loses.  Only the rows that beat ``kth`` are merged.  ``small_k``
+    is a width or an ascending cascade of widths, as in the JAX package;
+    batches of at most 4 x the widest take the flat merge.
+
+    On the card one host call launches the kernel
+    (:func:`.kernels.topn.topn_cull`), which counts the candidates on the
+    device and stays exact for any count; its chunk width is the power of
+    two at or above the widest width.  On the CPU the plain version reads
+    the count and picks the narrowest width that holds it, or the flat
+    merge, as the JAX function's ``lax.cond`` cascade does.
+    """
+    from .kernels.topn import _widths, topn_cull
+    widths = _widths(small_k)
+    if batch[discrepancy_name].shape[0] <= 4 * max(widths):
+        return merge_core(buffers, batch, threshold, discrepancy_name)
+    out, _, n_acc = topn_cull(buffers, batch, threshold, discrepancy_name,
+                              widths)
+    return out, n_acc
+
+
+# The three constants below are scripts/torch_merge_ab.py's A/B on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: fused MA2 rejection, 2**28
+# simulations, 5000 samples; device ms a batch (profiled) and the best of
+# three walls, every arm equal to the flat merge with no unroll.
+
+#: the fused loop's merge: "culled" (:func:`merge_core_culled` for batches
+#: of at least :data:`CULL_MIN_BATCH` rows) or "flat" (:func:`merge_core`).
+#: Culled beat flat at every batch: device ms a batch 0.592 -> 0.382 on
+#: the kernel graph at 2**21 (2.94e9 -> 3.92e9 sims/s), 0.554 -> 0.486 on
+#: the plain graph at 2**17, 0.968 -> 0.892 at 2**18, 0.344 -> 0.278 at
+#: 2**16 (no unroll, width 4096).
+MERGE_VARIANT = "culled"
+#: the culled merge's width(s) (an int or an ascending tuple); the kernel
+#: chunks the candidates at the power of two at or above the widest.
+#: 1024, 4096, 16384 and the cascade (1024, 4096, 16384) tie within 0.5 %
+#: in device ms at 2**21 (0.3829, 0.3819, 0.3838, 0.3826) and within the
+#: walls' spread elsewhere; 4096, the JAX package's value, stays.
+CULL_SMALL_K = 4096
+#: the smallest merged batch that takes the culled merge: the smallest
+#: batch measured, 2**16, already gains (above); smaller batches were not
+#: measured (and at most 4 x the widest width merge flat anyway)
+CULL_MIN_BATCH = 1 << 16
+
+
+def merge_scan(buffers, batch, threshold, discrepancy_name, fresh=False):
+    """Merge used by the fused rejection loop, honouring
+    :data:`MERGE_VARIANT`, :data:`CULL_SMALL_K` and :data:`CULL_MIN_BATCH`
+    as the JAX package's ``merge_scan`` does.
+
+    ``fresh=True`` (the caller's own count: the buffer has taken fewer
+    rows than it holds) takes the flat merge.  The buffer's N-th key is
+    then +inf, so every accepted row of the batch is a candidate: the
+    count the JAX cascade sends to its flat merge.  After that the count
+    is at most the rows a batch accepts, or about N B / (rows seen), and
+    the kernel's chunks hold any count without a host read.
+    """
+    b = batch[discrepancy_name].shape[0]
+    if MERGE_VARIANT == "culled" and b >= CULL_MIN_BATCH and not fresh:
+        return merge_core_culled(buffers, batch, threshold, discrepancy_name,
+                                 small_k=CULL_SMALL_K)
     return merge_core(buffers, batch, threshold, discrepancy_name)
 
 

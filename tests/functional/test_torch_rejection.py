@@ -170,3 +170,71 @@ def test_kernel_graph_runs_through_the_wrapper(monkeypatch):
         10, n_sim=3 * 1024, bar=False)
     assert [c[0] for c in calls] == [1024] * 3
     assert len({c[1] for c in calls}) == 3
+
+
+def _outputs_equal(a, b, what):
+    assert sorted(a.outputs) == sorted(b.outputs)
+    for k in a.outputs:
+        np.testing.assert_array_equal(a.outputs[k], b.outputs[k],
+                                      err_msg=f"{what}: {k}")
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu", "cpu"]])
+def test_fused_merge_unroll_and_cull_parity(devices, monkeypatch):
+    """The counterpart of tests/functional/test_rejection.py's
+    test_fused_merge_unroll_parity, with the culled merge on: u batches
+    concatenated into one merge equal one merge a batch, bit for bit, for
+    u = 1-4 (10 batches at u = 3 and 4 end each chunk with a remainder
+    merge), in quantile and threshold mode, on one device and over a
+    device list (each device concatenating its own batches)."""
+    from elfi_tpu_torch.methods import samplers
+    from elfi_tpu_torch.ops import topk
+    m = ma2.get_model(seed_obs=4)
+    monkeypatch.setattr(topk, "CULL_SMALL_K", 16)
+    monkeypatch.setattr(topk, "CULL_MIN_BATCH", 128)
+
+    def run(**kw):
+        return et.Rejection(m["d"], batch_size=128, seed=13).sample(
+            40, bar=False, **kw)
+
+    monkeypatch.setattr(topk, "MERGE_VARIANT", "flat")
+    monkeypatch.setattr(samplers, "FUSED_UNROLL", 1)
+    base, base_thr = run(n_sim=1280), run(threshold=0.3)
+    if devices:
+        et.set_client("sharded", devices=devices)
+    monkeypatch.setattr(topk, "MERGE_VARIANT", "culled")
+    for u in (1, 2, 3, 4):
+        monkeypatch.setattr(samplers, "FUSED_UNROLL", u)
+        _outputs_equal(run(n_sim=1280), base, f"unroll {u}")
+        res_thr = run(threshold=0.3)
+        _outputs_equal(res_thr, base_thr, f"unroll {u}, threshold")
+        assert res_thr.n_sim == base_thr.n_sim
+
+
+def test_fused_loop_routes_a_fresh_buffer_to_the_flat_merge(monkeypatch):
+    """The host's rule: a device's merges before its buffer has taken n
+    rows go to the flat merge (fresh=True), every later one to the cull;
+    u batches make one merge."""
+    from elfi_tpu_torch.methods import samplers
+    from elfi_tpu_torch.ops import topk
+    m = ma2.get_model(seed_obs=4)
+    monkeypatch.setattr(topk, "CULL_SMALL_K", 16)
+    monkeypatch.setattr(topk, "CULL_MIN_BATCH", 64)
+    seen = []
+    scan = topk.merge_scan
+    monkeypatch.setattr(topk, "merge_scan", lambda b, batch, t, d, fresh: (
+        seen.append((batch[d].shape[0], fresh)) or scan(b, batch, t, d,
+                                                        fresh=fresh)))
+    for u, expect in ((1, [(64, True)] * 3 + [(64, False)] * 5),
+                      (2, [(128, True)] * 2 + [(128, False)] * 2)):
+        monkeypatch.setattr(samplers, "FUSED_UNROLL", u)
+        seen.clear()
+        et.Rejection(m["d"], batch_size=64, seed=1).sample(
+            150, n_sim=8 * 64, bar=False)
+        assert seen == expect
+    et.set_client("sharded", devices=["cpu", "cpu"])
+    monkeypatch.setattr(samplers, "FUSED_UNROLL", 1)
+    seen.clear()
+    et.Rejection(m["d"], batch_size=64, seed=1).sample(100, n_sim=8 * 64,
+                                                       bar=False)
+    assert seen == [(64, True)] * 4 + [(64, False)] * 4

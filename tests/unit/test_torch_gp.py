@@ -541,3 +541,55 @@ def test_custom_kernel_gp_equals_jax():
     with pytest.raises(ValueError, match="kernel_params"):
         tgp.GPRegression(["x"], bounds=[(-2, 2)], kernel=_matern32(torch),
                          device=CPU)
+
+
+@pytest.mark.parametrize("name", ["gp_mean_obj", "gp_neg_lcb_obj",
+                                  "gp_neg_lcb_obj_inv"])
+def test_module_level_objectives_equal_jax(gps, name):
+    """The JAX module's names (``elfi_tpu/methods/bo/gp.py:104, 328-332``):
+    the default bundle's objectives, at points of the grid."""
+    import jax.numpy as jnp
+    from elfi_tpu.methods.bo import gp as jgp_mod
+    jgp, pgp = gps
+    if jgp.fns.kernel is not jgp_mod.rbf_bias_kernel:
+        pytest.skip("the fixture's GP has another kernel")
+    jXp, jmask, jL, jalpha, jparams = jgp._factor
+    Xp, mask, L, alpha, params = pgp._factor
+    jargs, pargs = (jXp, jmask, jL, jalpha, jparams), (Xp, mask, L, alpha,
+                                                       params)
+    if name == "gp_neg_lcb_obj_inv":
+        jargs = (jXp, jmask, jgp.fns.posterior_inverse(jL, jmask), jalpha,
+                 jparams)
+        pargs = (Xp, mask, pgp.fns.posterior_inverse(L, mask), alpha, params)
+    beta = np.float32(7.5)
+    jextra = () if name == "gp_mean_obj" else (jnp.float32(beta),)
+    pextra = () if name == "gp_mean_obj" else (_t(beta),)
+    assert getattr(tgp, name) is getattr(
+        tgp.make_gp_fns(tgp.rbf_bias_kernel), name[3:])
+    x = _grid(jgp.input_dim, 8, 4)
+    jv = [getattr(jgp_mod, name)(jnp.asarray(r), *jargs, *jextra) for r in x]
+    pv = [getattr(tgp, name)(_t(r), *pargs, *pextra) for r in x]
+    _close(torch.stack(pv), np.stack(jv), VAR_INV_TOL, name)
+
+
+def test_module_level_kernel_and_restarts_equal_jax(gps):
+    from elfi_tpu.methods.bo import gp as jgp_mod
+    jgp, pgp = gps
+    assert tgp.gp_cross_cov is tgp.rbf_bias_kernel
+    x = _grid(jgp.input_dim, 7, 2)
+    _close(tgp.gp_cross_cov(_t(x), _t(x[:3]), pgp.params),
+           jgp_mod.gp_cross_cov(x, x[:3], jgp.params), ELEM_RTOL,
+           "gp_cross_cov")
+    assert tgp.optimize_restarts_core is \
+        tgp.make_gp_fns(tgp.rbf_bias_kernel).optimize_restarts_core
+    Xp, yp, mask = pgp._padded()
+    u0 = jgp._log_param_vector().astype(np.float32)
+    shapes = _t(np.asarray(jgp._prior_shapes, np.float32))
+    pu, pf = tgp.optimize_restarts_core(_t(u0[None]), Xp, yp, mask, shapes,
+                                        torch.tensor(0.1), steps=20,
+                                        const_params=pgp._const_params())
+    qu, qf = pgp.fns.optimize_restarts_core(_t(u0[None]), Xp, yp, mask,
+                                            shapes, torch.tensor(0.1),
+                                            steps=20,
+                                            const_params=pgp._const_params())
+    assert torch.equal(pu, qu) and torch.equal(pf, qf)

@@ -207,3 +207,19 @@ def test_progress_bar(capsys):
     out = capsys.readouterr().out
     assert "round 1" in out and "100.0%" in out
     assert bar.finished
+
+
+def test_sampler_progress_bar_reinit_as_jax(capsys):
+    """``methods.base._ProgressBar.reinit`` (``elfi_tpu/methods/base.py:311``)
+    prints the same text and keeps the same scaling as the JAX package's."""
+    from elfi_tpu.methods.base import _ProgressBar as JaxBar
+    from elfi_tpu_torch.methods.base import _ProgressBar
+    outs = []
+    for cls in (JaxBar, _ProgressBar):
+        bar = cls()
+        bar.reinit(scaling=3, msg="round 2")
+        bar.reinit(scaling=4)
+        bar.update(5, 10)
+        bar.finish()
+        outs.append((capsys.readouterr().out, bar.scaling))
+    assert outs[0] == outs[1]
