@@ -33,17 +33,23 @@ Phases, each of which raises on failure (exit code != 0):
    that merges.
 5a. The merge (``phase_merge``, at most 30 s): (a) the cull kernel against
    its plain version, bit for bit (keys, index map, every column, the
-   acceptance count), and both against the flat merge, on 32 merges at
+   acceptance count), and both against the flat merge, on 41 merges at
    each of 2**17 and 2**21 rows, n 5000 (``merge_cases``: a fresh buffer,
-   candidate counts just above and well above the kernel's width, exact
-   ties at the N-th key, NaN and +inf distances, a threshold rejecting
-   everything, a partly +inf buffer, a 2-D distance under a vector
-   threshold, an int64 ``__pos`` and a (B, 2) column); (b) the fused MA2
-   rejection on both graphs at the main path's point under the chosen
-   merge settings equal to the flat merge with no unroll, gated, its
-   quantile-mode loop under ``torch.cuda.set_sync_debug_mode("error")``;
-   (c) the kernel's time at n/16, width and 4 x width candidates, its
-   plain version's, the flat merge's and ``torch.topk``'s at 2**21.
+   candidate counts just above and well above the width, at the edges of
+   the kernel's counting sort, its copies of every tile and its one-pass
+   capacity, each minus one, equal and plus one, exact ties at the N-th
+   key, NaN and +inf distances, a threshold rejecting everything, a partly
+   +inf buffer, a 2-D distance under a vector threshold, an int64
+   ``__pos`` and a (B, 2) column); (b) the fused MA2 rejection on both
+   graphs at the main path's point under the chosen merge settings equal
+   to the flat merge with no unroll, gated, its quantile-mode loop under
+   ``torch.cuda.set_sync_debug_mode("error")``; (c) the kernel's time at
+   n/16, 4096, 16384 and 32768 candidates (queued ahead and with the
+   host's queueing), its plain version's, the flat merge's and
+   ``torch.topk``'s at 2**21, its device time by kernel and its device
+   operations a merge (at most two, no memset) from one profile, the
+   host's time to queue a merge, and the MA2 kernel graph's busy share
+   from one profiled run.
 6. Hold the g-and-k distance kernel (K2) against its plain version: the
    same normals at 2**16 and 2**21 simulations and n_obs 17, 50 and 64
    (max relative error <= 1e-5), its sorting network against
@@ -857,6 +863,8 @@ def phase_main_path(device):
 MERGE_BATCHES = (PLAIN_BATCH, KERNEL_BATCH)
 MERGE_STEADY = 14        # uniform batches of the steady state, per size
 MERGE_LIMIT_S = 30.0
+MERGE_PROFILED = 20          # merges in the cull's profile
+MERGE_PROFILED_BATCHES = 32  # batches in the kernel graph's profile
 
 
 def _bits(x):
@@ -868,14 +876,18 @@ def merge_cases(device, batch, n, width, seed):
     """The merges phase_merge holds the cull kernel to, in order: yields
     (case, buffers, batch, threshold, candidates expected or None), each
     input buffer the flat merge's after the cases before.  Three streams,
-    32 merges: (1) a 1-D distance carrying t1 (a strided column), t2 (B, 2)
+    41 merges: (1) a 1-D distance carrying t1 (a strided column), t2 (B, 2)
     and an int64 ``__pos``: a fresh buffer, a candidate count just above
-    and well above ``width``, exact ties at the N-th key and at other
-    buffer keys, steady batches (every fourth with NaN and +inf
+    and well above ``width``, counts at the edges of the kernel's counting
+    sort, its copies of every tile and its one-pass capacity (each minus
+    one, equal, plus one), exact ties at the N-th key and at other buffer
+    keys, steady batches (every fourth with NaN and +inf
     distances), a threshold that rejects everything, a one-element
     threshold tensor; (2) a threshold that keeps the buffer partly +inf;
     (3) a 2-D distance under a vector threshold."""
     from elfi_tpu_torch.ops import topk
+    from elfi_tpu_torch.ops.kernels.topn import (CAPACITY, COUNT_SORT,
+                                                 LOCAL_TILES)
     g = torch.Generator(device=device).manual_seed(seed)
     pos = [0]
 
@@ -905,8 +917,14 @@ def merge_cases(device, batch, n, width, seed):
     bufs = topk.init_buffers(n, b, "d")
     yield "fresh buffer", bufs, b, math.inf, batch
     bufs = merged(bufs, b, math.inf)
+    edges = [(f"count {what} {c + e}", c + e)
+             for what, c in (("at the counting sort's edge", 8 * COUNT_SORT),
+                             ("at the tiles' copies", LOCAL_TILES),
+                             ("at capacity", CAPACITY))
+             for e in (-1, 0, 1)]
     for case, count in (("count just above the width", width + width // 4),
-                        ("count well above the width", 4 * width + 123)):
+                        ("count well above the width", 4 * width + 123),
+                        *edges):
         kth = float(bufs["__key"][n - 1])
         b = columns(below(kth, count))
         yield case, bufs, b, math.inf, count
@@ -1007,16 +1025,19 @@ def phase_merge(device):
     count), both against the flat merge; (b) the fused MA2 rejection on
     both graphs at the main path's point under the chosen settings against
     the flat merge with no unroll, bit for bit, gated, the quantile-mode
-    loop under ``torch.cuda.set_sync_debug_mode("error")``; (c) times."""
+    loop under ``torch.cuda.set_sync_debug_mode("error")``; (c) times:
+    the kernel at four candidate counts, by kernel from one profile, its
+    device operations a merge (at most two, no memset), the host's time to
+    queue one, and the MA2 kernel graph's busy share."""
     import elfi_tpu_torch as et
     from elfi_tpu_torch.methods import samplers
     from elfi_tpu_torch.models import ma2, ma2_kernel
     from elfi_tpu_torch.ops import topk
-    from elfi_tpu_torch.ops.kernels.topn import (kernel_width, topn_cull,
+    from elfi_tpu_torch.ops.kernels.topn import (CAPACITY, topn_cull,
                                                  topn_cull_reference)
     t_phase = time.perf_counter()
     widths = topk.CULL_SMALL_K
-    width = kernel_width(widths if isinstance(widths, tuple) else (widths,))
+    width = max(widths) if isinstance(widths, tuple) else widths
     out = {"width": width, "cull_small_k": widths,
            "cull_min_batch": topk.CULL_MIN_BATCH,
            "merge_variant": topk.MERGE_VARIANT}
@@ -1049,7 +1070,7 @@ def phase_merge(device):
                       f"{what}: {k} differs")
             counts[f"{batch}: {case}"] = count
             cases += 1
-        check(cases >= 32, f"only {cases} merge cases")
+        check(cases >= 41, f"only {cases} merge cases")
     torch.cuda.synchronize()
     log(f"merge (a): topn_cull == its plain version == the flat merge, bit "
         f"for bit (keys, index map, every column, acceptance), on "
@@ -1093,43 +1114,83 @@ def phase_merge(device):
         out[name] = dict(wall_s=wall, flat_wall_s=wall_flat, unroll=unroll,
                          launches=launches)
 
-    # (c) times at the kernel graph's batch: the cull at three candidate
-    # counts, its plain version (which reads the count on the host), the
-    # flat merge and torch.topk, each call's launches queued ahead; and
-    # the cull's time per call with the host's queueing in it
-    times = {}
-    for label, count in (("n/16", N_SAMPLES // 16), ("width", width),
-                         ("4 width", 4 * width)):
+    # (c) times at the kernel graph's batch: the cull at four candidate
+    # counts with its launches queued ahead and with the host's queueing,
+    # its plain version (which reads the count on the host), the flat
+    # merge and torch.topk; the kernels' device time from one profile, the
+    # host's time to queue a merge, and the kernel graph's busy share
+    times, event = {}, {}
+    for label, count in (("n/16", N_SAMPLES // 16), ("4096", 4096),
+                         ("16384", 16384), ("capacity", CAPACITY)):
         bufs, b = cull_input(device, KERNEL_BATCH, count, seed=count)
+        check(candidates(bufs, b, math.inf) == count,
+              f"cull input {label}: not {count} candidates")
         times[label] = queued_ms(lambda: topn_cull(bufs, b, math.inf, "d",
                                                    widths))
-        if label == "n/16":
-            out["event_ms"] = time_ms(lambda: topn_cull(bufs, b, math.inf,
-                                                        "d", widths))
-            out["plain_ms"] = time_ms(lambda: topn_cull_reference(
-                bufs, b, math.inf, "d", widths))
-            out["flat_ms"] = queued_ms(lambda: topk.merge_core(
-                bufs, b, math.inf, "d"))
-            cat = torch.cat([bufs["__key"], b["d"]])
-            out["library_ms"] = queued_ms(lambda: torch.topk(
-                cat, N_SAMPLES, largest=False, sorted=True))
-            out["host_us"] = {
-                "topn_cull": host_us(lambda: topn_cull(bufs, b, math.inf,
-                                                       "d", widths)),
-                "merge_core": host_us(lambda: topk.merge_core(
-                    bufs, b, math.inf, "d"))}
+        event[label] = time_ms(lambda: topn_cull(bufs, b, math.inf, "d",
+                                                 widths))
+        if label != "n/16":
+            continue
+        out["plain_ms"] = time_ms(lambda: topn_cull_reference(
+            bufs, b, math.inf, "d", widths))
+        out["flat_ms"] = queued_ms(lambda: topk.merge_core(
+            bufs, b, math.inf, "d"))
+        cat = torch.cat([bufs["__key"], b["d"]])
+        out["library_ms"] = queued_ms(lambda: torch.topk(
+            cat, N_SAMPLES, largest=False, sorted=True))
+        out["host_us"] = {
+            "topn_cull": host_us(lambda: topn_cull(bufs, b, math.inf, "d",
+                                                   widths)),
+            "merge_core": host_us(lambda: topk.merge_core(
+                bufs, b, math.inf, "d"))}
+        _, prof = profiled(lambda: [topn_cull(bufs, b, math.inf, "d", widths)
+                                    for _ in range(MERGE_PROFILED)])
+        events, device_us = device_table(prof)
+        ops = card_events(events)
+        out["by_kernel_ms"] = {e.key: e.self_device_time_total / 1e3
+                               / MERGE_PROFILED for e in ops}
+        out["device_ops_per_merge"] = sum(e.count for e in ops) \
+            / MERGE_PROFILED
+        check(out["device_ops_per_merge"] <= 2
+              and not any("emset" in e.key for e in ops),
+              f"a merge took {out['device_ops_per_merge']} device "
+              f"operations: {out['by_kernel_ms']}")
     out["ms_by_count"] = times
+    out["event_ms_by_count"] = event
     out["ms"] = times["n/16"]
+    out["event_ms"] = event["n/16"]
     out["bound_ms"] = cull_bound_ms(KERNEL_BATCH, N_SAMPLES, (4, 4, 4))
+
+    node = ma2_kernel.get_model(seed_obs=SEED_OBS)["d"]
+    rej = et.Rejection(node, batch_size=KERNEL_BATCH, seed=2, device=device)
+    rej.sample(N_SAMPLES, n_sim=2 * KERNEL_BATCH, bar=False)
+    _, prof = profiled(lambda: rej.sample(
+        N_SAMPLES, n_sim=MERGE_PROFILED_BATCHES * KERNEL_BATCH, bar=False))
+    events, device_us = device_table(prof)
+    graph = out["kernel graph"]
+    graph["device_ms_per_batch"] = device_us / 1e3 / MERGE_PROFILED_BATCHES
+    graph["wall_ms_per_batch"] = graph["wall_s"] * 1e3 / (
+        N_SIM // KERNEL_BATCH)
+    graph["busy_share"] = (graph["device_ms_per_batch"]
+                           / graph["wall_ms_per_batch"])
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "profile_merge_kernel_graph.txt").write_text(events.table(
+        sort_by="self_device_time_total", row_limit=30))
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"merge (c) B={KERNEL_BATCH}, n={N_SAMPLES}: topn_cull "
         f"{times!r} ms by candidate count (launches queued ahead), "
-        f"{out['event_ms']!r} ms a call with the host's queueing; plain "
+        f"{event!r} ms a call with the host's queueing; by kernel "
+        f"{out['by_kernel_ms']!r} ms, {out['device_ops_per_merge']!r} "
+        f"device operations a merge (profiled); plain "
         f"{out['plain_ms']!r}, flat merge {out['flat_ms']!r}, torch.topk "
         f"{out['library_ms']!r}, bound {out['bound_ms']!r} ms (median of "
-        f"25, CUDA events); host us to "
-        f"queue a merge {out['host_us']!r}; phase "
-        f"{out['wall_s']!r} s (limit {MERGE_LIMIT_S}) on {card_line()}")
+        f"25, CUDA events); host us to queue a merge {out['host_us']!r}; "
+        f"MA2 kernel graph {graph['device_ms_per_batch']!r} device ms a "
+        f"batch ({MERGE_PROFILED_BATCHES} profiled) against "
+        f"{graph['wall_ms_per_batch']!r} wall ms (b), busy "
+        f"{graph['busy_share']!r}; phase {out['wall_s']!r} s (limit "
+        f"{MERGE_LIMIT_S}) on {card_line()}")
+    log_top(events, device_us, MERGE_PROFILED_BATCHES)
     check(out["wall_s"] < MERGE_LIMIT_S, f"the merge phase took "
           f"{out['wall_s']} s")
     return out

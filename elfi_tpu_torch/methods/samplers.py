@@ -56,20 +56,23 @@ _FUSED_CHUNK = 16
 #: acceptance count read per chunk is unchanged.
 #:
 #: scripts/torch_merge_ab.py on an NVIDIA H100 80GB HBM3 at 700.00 W (MA2,
-#: 2**28 simulations, culled merge, best of three walls, averaged over the
-#: four widths): the plain graph at 2**16 goes 0.92e8 (u = 1, where two
-#: widths merge flat) -> 1.35e8, 1.52e8, 1.45e8, 1.62e8 sims/s (u = 2, 4,
-#: 8, 16), at 2**17 1.94e8 -> 2.17e8, 2.14e8, 2.26e8, 2.09e8 (walls spread
-#: up to 2x, device ms a batch 0.487 -> 0.474 at u = 16), at 2**18 flat in
-#: u (2.81e8-2.88e8);
-#: the kernel graph at 2**20 2.51e9 -> 2.89e9 (u = 2).  Each merge costs
-#: the host its launches, so merging fewer times pays wherever the host
-#: bounds the loop; the cap of 2**21 rows a merge stands, and the
-#: batch-size guard moves from the JAX package's 2**18 to 2**20.
+#: 2**28 simulations, culled merge at width 4096, best of three walls;
+#: device ms a batch from one profiled run), with the cull redesigned for
+#: Hopper: the plain graph at 2**16 goes 0.97e8 (u = 1) -> 1.14e8, 1.31e8,
+#: 1.40e8, 1.57e8 sims/s (u = 2, 4, 8, 16; 0.275 -> 0.261 device ms), at
+#: 2**17 1.88e8 -> 2.32e8, 2.23e8, 2.22e8, 2.40e8 (walls spread up to 2x;
+#: 0.485 -> 0.473 device ms at u = 16), at 2**18 2.85e8 -> 2.89e8 (u = 8);
+#: the kernel graph at 2**20 2.84e9 (u = 1) against 2.50e9 (u = 2), 0.207
+#: against 0.213 device ms: with a cheaper cull the unroll's concatenation
+#: costs the card more than the merges it saves, so the batch-size guard
+#: is the JAX package's 2**18 again (it was 2**20, for +10-23 % at u = 2
+#: with the first cull).  Each merge costs the host its launches, so
+#: merging fewer times pays wherever the host bounds the loop; the cap of
+#: 2**21 rows a merge stands.
 FUSED_UNROLL = None
 _UNROLL_CAND_CAP = 1 << 21   # max concatenated rows per merge
 _UNROLL_MAX = 16
-_UNROLL_MAX_BATCH = 1 << 20  # no unroll above this batch size
+_UNROLL_MAX_BATCH = 1 << 18  # no unroll above this batch size
 _UNROLL_BYTES_CAP = 256      # no unroll for wide outputs (not measured)
 _MAX_BATCHES = 100_000
 #: folded into a round's seed to key its proposal streams (the JAX

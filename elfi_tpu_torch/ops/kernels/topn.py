@@ -4,14 +4,24 @@
 Counterpart of :func:`elfi_tpu.ops.topk.merge_core_culled` (XLA in the JAX
 package, not Pallas).  :func:`topn_cull` launches the kernel for CUDA
 tensors and raises if it cannot; it runs the plain version only for CPU
-tensors.  ``topn_cull.launches`` counts the kernel launches (one host call
-a merge), so a run can show it went through the kernel.
+tensors.  ``topn_cull.launches`` counts the kernel's host calls (one a
+merge, each launching a scan and a merge kernel), so a run can show it
+went through the kernel.
 
 Both return ``(out, idx, n_accepted)``: the merged buffers (``"__key"``
 and every column of the batch), the index map (entry i is buffer row
 ``idx[i]`` if ``idx[i] < n``, else batch row ``idx[i] - n``: the index
 into the flat merge's concatenation) and the acceptance count as a 0-d
 int64 tensor on the batch's device.
+
+The host's part of a merge is kept lean: a plan, cached by everything that
+fixes the kernel's arguments but the data (device, stream, batch size,
+buffer size, the distance's and the columns' dtypes, shapes and layouts,
+the threshold's kind), holds the argument block the kernel reads, the
+column tables and the scratch the kernel reuses on its stream.  A call
+sets the data pointers, allocates what it returns (one tensor per dtype
+and trailing shape of the keys and columns, split into rows, and one for
+the index map and the acceptance count) and makes one ctypes call.
 """
 
 from __future__ import annotations
@@ -19,50 +29,62 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import numbers
 
-import numpy as np
 import torch
 
 from .. import topk
 from . import _build
 
-__all__ = ["topn_cull", "topn_cull_reference", "kernel_width",
-           "MAX_WIDTH"]
+__all__ = ["topn_cull", "topn_cull_reference", "CLUSTER_BLOCKS", "TILE",
+           "CAPACITY", "COUNT_SORT", "LOCAL_TILES", "KEY_STAGE"]
 
 _LIB = "topn_cull"
 _SOURCES = ("topn_cull.cu",)
 _P = ctypes.c_void_p
-#: the kernel's widest chunk: 2^14 packed pairs fill 128 KiB of shared
-#: memory
-MAX_WIDTH = 1 << 14
+_I = ctypes.c_longlong
+
+# The kernel's constants (csrc/topn_cull.cu; a CPU test holds them equal).
+#: blocks of the merge kernel's cluster
+CLUSTER_BLOCKS = 8
+#: candidates a block sorts in one pass
+TILE = 4096
+#: candidates the merge takes in one pass; a larger count takes more
+CAPACITY = CLUSTER_BLOCKS * TILE
+#: a block's share of a pass sorted by counting (bitonic above)
+COUNT_SORT = 512
+#: the candidates of a pass up to which every block holds a copy of every
+#: tile (above, the tiles are searched through distributed shared memory)
+LOCAL_TILES = 16384
+#: the buffer's keys staged in shared memory (a larger buffer is searched
+#: in device memory)
+KEY_STAGE = 8192
+#: plans kept per process; the oldest is dropped first
+MAX_PLANS = 16
+
+
+class _CullCall(ctypes.Structure):
+    """``CullCall`` of ``csrc/topn_cull.cu``, field for field (each 8
+    bytes wide, so no padding can differ)."""
+    _fields_ = [("d", _P), ("batch", _I), ("cols", _I), ("ld", _I),
+                ("thr_vec", _P), ("thr_len", _I),
+                ("thr_scalar", ctypes.c_double), ("buf_keys", _P),
+                ("n", _I), ("scratch", _P),
+                ("out_keys", _P), ("out_idx", _P), ("out_acc", _P),
+                ("n_columns", _I), ("col_buf", _P), ("col_batch", _P),
+                ("col_out", _P), ("row_bytes", _P), ("batch_stride", _P),
+                ("device", _I), ("stream", _P)]
 
 
 @functools.cache
 def _lib():
     """Build (at first use) and bind the kernel library."""
     lib = _build.load(_LIB, _SOURCES)
-    lib.elfi_topn_cull.argtypes = [
-        _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        _P, ctypes.c_int, ctypes.c_float,
-        _P, ctypes.c_int, ctypes.c_int,
-        _P, _P, _P, _P, _P, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int, _P]
+    lib.elfi_topn_cull.argtypes = [ctypes.POINTER(_CullCall)]
     lib.elfi_topn_cull.restype = ctypes.c_int
     lib.elfi_cuda_error_string.argtypes = [ctypes.c_int]
     lib.elfi_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def kernel_width(widths):
-    """The kernel's chunk width for a ``small_k`` cascade: the power of two
-    at or above its widest width, within [32, :data:`MAX_WIDTH`].  The
-    kernel sorts each chunk at the power of two above its survivors, so it
-    picks a narrower width per merge by itself."""
-    w = max(widths)
-    return min(MAX_WIDTH, max(32, 1 << max(0, int(w) - 1).bit_length()))
 
 
 def _widths(small_k):
@@ -88,14 +110,7 @@ def _gather(buffers, batch, idx, n):
     return out
 
 
-def topn_cull_reference(buffers, batch, threshold, discrepancy_name,
-                        small_k=1024):
-    """Plain PyTorch version, line for line the JAX package's
-    ``merge_core_culled`` past its small-batch rule: the candidates beating
-    the buffer's N-th key are counted (a host read), the narrowest width of
-    the cascade that holds them takes the first ``width`` of a stable sort
-    of the masked keys, and the flat merge runs where none does."""
-    widths = _widths(small_k)
+def _reference(buffers, batch, threshold, discrepancy_name, widths):
     d = batch[discrepancy_name]
     ok = topk.accept_mask(d, threshold)
     keys_eff = torch.where(ok, topk.sort_key(d).to(torch.float32), math.inf)
@@ -121,12 +136,15 @@ def topn_cull_reference(buffers, batch, threshold, discrepancy_name,
     return out, idx, ok.sum()
 
 
-def _word(*values):
-    """The widest copy unit (8, 4, 2 or 1 bytes) dividing every value."""
-    for w in (8, 4, 2):
-        if all(v % w == 0 for v in values):
-            return w
-    return 1
+def topn_cull_reference(buffers, batch, threshold, discrepancy_name,
+                        small_k=1024):
+    """Plain PyTorch version, line for line the JAX package's
+    ``merge_core_culled`` past its small-batch rule: the candidates beating
+    the buffer's N-th key are counted (a host read), the narrowest width of
+    the cascade that holds them takes the first ``width`` of a stable sort
+    of the masked keys, and the flat merge runs where none does."""
+    return _reference(buffers, batch, threshold, discrepancy_name,
+                      _widths(small_k))
 
 
 def _row_layout(v):
@@ -141,107 +159,212 @@ def _row_layout(v):
     return expect * v.element_size(), v.stride(0) * v.element_size()
 
 
+def _raw_stream(index):
+    """The current stream of CUDA device ``index`` as a ``cudaStream_t``
+    (an int): PyTorch's own accessor for generated kernels, a few
+    microseconds cheaper a call than ``torch.cuda.current_stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _threshold_kind(threshold):
+    if isinstance(threshold, torch.Tensor):
+        return (threshold.dtype, threshold.shape, threshold.get_device(),
+                threshold.is_contiguous())
+    return type(threshold)
+
+
+def _plan_key(buffers, batch, threshold, discrepancy_name, stream):
+    """Everything that fixes the kernel's arguments but the data."""
+    d = batch[discrepancy_name]
+    bkeys = buffers["__key"]
+    cols = []
+    for k, v in batch.items():
+        bv = buffers[k]
+        cols.append((k, v.dtype, v.shape, v.stride(), v.get_device(),
+                     bv.dtype, bv.shape, bv.is_contiguous(),
+                     bv.get_device()))
+    return (discrepancy_name, d.get_device(), stream, d.dtype, d.shape,
+            d.stride(), bkeys.dtype, bkeys.shape, bkeys.is_contiguous(),
+            bkeys.get_device(), _threshold_kind(threshold), tuple(cols))
+
+
+class _Plan:
+    """The kernel's arguments for one plan key (module docstring), checked
+    once; :meth:`__call__` runs one merge."""
+
+    def __init__(self, key, buffers, batch, threshold, discrepancy_name,
+                 device, stream):
+        d = batch[discrepancy_name]
+        bkeys = buffers["__key"]
+        n, B = int(bkeys.shape[0]), int(d.shape[0])
+        _build.check_tensor("buffers['__key']", bkeys, (n,), device)
+        if n + B >= 0xFFFFFFFF:
+            raise ValueError(f"buffer {n} + batch {B} rows exceed the "
+                             "kernel's 32-bit row index")
+        self.key, self.device, self.name = key, device, discrepancy_name
+        self.n = n
+
+        # the distance and the threshold as the kernel reads them; any
+        # other layout or dtype has its keys made here, compared with +inf
+        thr_t = threshold if isinstance(threshold, torch.Tensor) else None
+        thr_ok = (thr_t is None and isinstance(threshold, numbers.Real)) or (
+            thr_t is not None and thr_t.dtype == torch.float32
+            and thr_t.device == device and thr_t.is_contiguous()
+            and (thr_t.numel() == 1
+                 or (d.ndim == 2 and tuple(thr_t.shape) == (d.shape[1],))))
+        self.direct = (d.dtype == torch.float32 and d.ndim in (1, 2)
+                       and thr_ok and (d.ndim == 1 or d.stride(1) == 1
+                                       or d.shape[1] == 1))
+        call = _CullCall(batch=B, n=n, device=device.index, stream=stream)
+        if self.direct:
+            call.cols = 1 if d.ndim == 1 else int(d.shape[1])
+            call.ld = int(d.stride(0))
+            call.thr_len = 0 if thr_t is None else (
+                1 if thr_t.numel() == 1 else call.cols)
+        else:
+            call.cols, call.ld, call.thr_len = 1, 1, 0
+            call.thr_scalar = math.inf
+        self.thr_tensor = thr_t is not None and self.direct
+
+        # columns: the buffer's rows contiguous, the batch's each contiguous
+        # and of the buffer's dtype, or made so per call
+        self.names = list(batch)
+        self.fix_buf, self.fix_batch = [], []
+        nc = len(self.names)
+        self.col_buf = (_P * max(nc, 1))()
+        self.col_batch = (_P * max(nc, 1))()
+        self.col_out = (_P * max(nc, 1))()
+        self.row_bytes = (_I * max(nc, 1))()
+        self.batch_stride = (_I * max(nc, 1))()
+        # what a call returns: the keys and the columns in one tensor per
+        # (dtype, trailing shape), split into its rows; the index map and
+        # the acceptance count in one int64 tensor of n + 1
+        groups = {(torch.float32, ()): [-1]}            # -1: "__key"
+        for i, k in enumerate(self.names):
+            bv, v = buffers[k], batch[k]
+            if tuple(v.shape[1:]) != tuple(bv.shape[1:]) or v.shape[0] != B:
+                raise ValueError(f"column {k!r}: batch {tuple(v.shape)} does "
+                                 f"not match buffer {tuple(bv.shape)}")
+            if v.device != device or bv.device != device:
+                raise ValueError(f"column {k!r} is not on {device}")
+            convert = v.dtype != bv.dtype
+            layout = None if convert else _row_layout(v)
+            self.fix_batch.append(convert or layout is None)
+            self.fix_buf.append(not bv.is_contiguous())
+            row = math.prod(bv.shape[1:]) * bv.element_size()
+            self.row_bytes[i] = row
+            self.batch_stride[i] = layout[1] if layout else row
+            groups.setdefault((bv.dtype, tuple(bv.shape[1:])), []).append(i)
+        # (dtype, shape, bytes a member, [column index, -1 for the keys])
+        self.groups = [(dtype, (len(members), n) + trail,
+                        n * math.prod(trail) * torch.empty(
+                            (), dtype=dtype).element_size(), members)
+                       for (dtype, trail), members in groups.items()]
+        call.n_columns = nc
+        for field in ("col_buf", "col_batch", "col_out", "row_bytes",
+                      "batch_stride"):
+            setattr(call, field, ctypes.cast(getattr(self, field), _P))
+        # scratch on the stream: two counters (zero; the kernel leaves them
+        # zero), the candidates, two run buffers, a pass's sorted candidates
+        self.scratch = torch.empty(2 + B + 2 * n + CAPACITY,
+                                   dtype=torch.int64, device=device)
+        self.scratch[:2].zero_()
+        call.scratch = self.scratch.data_ptr()
+        self.call = call
+        self.call_ptr = ctypes.pointer(call)
+
+    def __call__(self, buffers, batch, threshold, lib):
+        call = self.call
+        d = batch[self.name]
+        n_acc = None
+        if self.direct:
+            call.d = d.data_ptr()
+            if self.thr_tensor:
+                call.thr_vec = threshold.data_ptr()
+            else:
+                call.thr_scalar = float(threshold)
+        else:
+            ok = topk.accept_mask(d, threshold)
+            dk = torch.where(ok, topk.sort_key(d).to(torch.float32),
+                             math.inf)
+            n_acc = ok.sum()
+            call.d = dk.data_ptr()
+        call.buf_keys = buffers["__key"].data_ptr()
+        keep = []       # converted columns, alive until the launch
+        for i, k in enumerate(self.names):
+            bv, v = buffers[k], batch[k]
+            if self.fix_buf[i]:
+                bv = bv.contiguous()
+                keep.append(bv)
+            if self.fix_batch[i]:
+                v = v.to(bv.dtype).contiguous()
+                keep.append(v)
+            self.col_buf[i] = bv.data_ptr()
+            self.col_batch[i] = v.data_ptr()
+
+        parts = [None] * (len(self.names) + 1)      # the keys last
+        for dtype, shape, nbytes, members in self.groups:
+            rows = torch.empty(shape, dtype=dtype, device=self.device)
+            base = rows.data_ptr()
+            for j, (i, part) in enumerate(zip(members, rows.unbind(0))):
+                parts[i] = part
+                if i == -1:
+                    call.out_keys = base + j * nbytes
+                else:
+                    self.col_out[i] = base + j * nbytes
+        idx_acc = torch.empty(self.n + 1, dtype=torch.int64,
+                              device=self.device)
+        call.out_idx = idx_acc.data_ptr()
+        call.out_acc = call.out_idx + 8 * self.n
+        rc = lib.elfi_topn_cull(self.call_ptr)
+        if rc != 0:
+            # the scratch's counters may be left non-zero
+            _plans.pop(self.key, None)
+            _build.raise_on(rc, lib, "elfi_topn_cull")
+        topn_cull.launches += 1
+        if n_acc is None:
+            n_acc = idx_acc[self.n]
+        out = {"__key": parts[-1]}
+        out.update(zip(self.names, parts))
+        return out, idx_acc[:self.n], n_acc
+
+
+#: plan key -> _Plan, oldest first
+_plans = {}
+
+
+def _cull(buffers, batch, threshold, discrepancy_name, widths):
+    """:func:`topn_cull` with the cascade already checked."""
+    d = batch[discrepancy_name]
+    if not d.is_cuda:
+        if d.device.type == "cpu":
+            return _reference(buffers, batch, threshold, discrepancy_name,
+                              widths)
+        raise ValueError(f"unsupported device {d.device}")
+    lib = _lib()
+    stream = _raw_stream(d.get_device())
+    key = _plan_key(buffers, batch, threshold, discrepancy_name, stream)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _Plan(key, buffers, batch, threshold, discrepancy_name,
+                     d.device, stream)
+        if len(_plans) >= MAX_PLANS:
+            _plans.pop(next(iter(_plans)))
+        _plans[key] = plan
+    return plan(buffers, batch, threshold, lib)
+
+
 def topn_cull(buffers, batch, threshold, discrepancy_name, small_k=1024):
     """The culled merge of ``batch`` into the sorted ``buffers``; returns
     ``(out, idx, n_accepted)`` (module docstring).
 
-    On CUDA one host call launches the kernel (no host read) with chunks
-    of :func:`kernel_width` ``(small_k)``; on the CPU the plain version
-    runs.  ``threshold`` is a number or a float32 tensor on the batch's
-    device (one bound, or one per distance column)."""
-    widths = _widths(small_k)
-    d = batch[discrepancy_name]
-    device = d.device
-    if device.type == "cpu":
-        return topn_cull_reference(buffers, batch, threshold,
-                                   discrepancy_name, widths)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    bkeys = buffers["__key"]
-    n, B = int(bkeys.shape[0]), int(d.shape[0])
-    _build.check_tensor("buffers['__key']", bkeys, (n,), device)
-    if n + B >= 0xFFFFFFFF:
-        raise ValueError(f"buffer {n} + batch {B} rows exceed the kernel's "
-                         "32-bit row index")
-
-    # the distance and the threshold as the kernel reads them; any other
-    # layout or dtype has its keys made here and compared against +inf
-    n_acc = None
-    thr_t = threshold if isinstance(threshold, torch.Tensor) else None
-    thr_ok = (thr_t is None and isinstance(threshold, (int, float,
-                                                       np.number))) or (
-        thr_t is not None and thr_t.dtype == torch.float32
-        and thr_t.device == device and thr_t.is_contiguous()
-        and (thr_t.numel() == 1
-             or (d.ndim == 2 and tuple(thr_t.shape) == (d.shape[1],))))
-    if (d.dtype == torch.float32 and d.ndim in (1, 2) and thr_ok
-            and (d.ndim == 1 or d.stride(1) == 1 or d.shape[1] == 1)):
-        cols = 1 if d.ndim == 1 else int(d.shape[1])
-        ld = int(d.stride(0))
-        if thr_t is None:
-            thr_len, thr_ptr = 0, None
-            thr_scalar = float(np.float32(threshold))
-        else:
-            thr_len = 1 if thr_t.numel() == 1 else cols
-            thr_ptr, thr_scalar = thr_t.data_ptr(), 0.0
-        dk = d
-    else:
-        ok = topk.accept_mask(d, threshold)
-        dk = torch.where(ok, topk.sort_key(d).to(torch.float32), math.inf)
-        n_acc = ok.sum()
-        cols, ld, thr_len, thr_ptr, thr_scalar = 1, 1, 0, None, math.inf
-
-    names = list(batch)
-    srcs, outs = [], {}
-    for k in names:
-        bv = buffers[k]
-        v = batch[k]
-        if v.dtype != bv.dtype:
-            v = v.to(bv.dtype)
-        if tuple(v.shape[1:]) != tuple(bv.shape[1:]) or v.shape[0] != B:
-            raise ValueError(f"column {k!r}: batch {tuple(v.shape)} does "
-                             f"not match buffer {tuple(bv.shape)}")
-        if v.device != device or bv.device != device:
-            raise ValueError(f"column {k!r} is not on {device}")
-        if not bv.is_contiguous():
-            bv = bv.contiguous()
-        layout = _row_layout(v)
-        if layout is None:
-            v = v.contiguous()
-            layout = _row_layout(v)
-        outs[k] = torch.empty_like(bv)
-        srcs.append((bv, v, layout))
-
-    lib = _lib()
-    small = torch.empty(2 + n, dtype=torch.int64, device=device)
-    counters, out_idx = small[:2], small[2:]
-    scratch = torch.empty(B + 2 * n, dtype=torch.int64, device=device)
-    out_keys = torch.empty(n, dtype=torch.float32, device=device)
-    nc = len(names)
-    col_buf = (ctypes.c_void_p * max(nc, 1))(
-        *(bv.data_ptr() for bv, _, _ in srcs))
-    col_batch = (ctypes.c_void_p * max(nc, 1))(
-        *(v.data_ptr() for _, v, _ in srcs))
-    col_out = (ctypes.c_void_p * max(nc, 1))(
-        *(outs[k].data_ptr() for k in names))
-    row_bytes = (ctypes.c_longlong * max(nc, 1))(
-        *(lay[0] for _, _, lay in srcs))
-    strides = (ctypes.c_longlong * max(nc, 1))(
-        *(lay[1] for _, _, lay in srcs))
-    words = (ctypes.c_int * max(nc, 1))(
-        *(_word(lay[0], lay[1], bv.data_ptr(), v.data_ptr())
-          for bv, v, lay in srcs))
-    rc = lib.elfi_topn_cull(
-        dk.data_ptr(), B, cols, ld, thr_ptr, thr_len, thr_scalar,
-        bkeys.data_ptr(), n, kernel_width(widths),
-        counters.data_ptr(), scratch[2 * n:].data_ptr(), scratch.data_ptr(),
-        out_keys.data_ptr(), out_idx.data_ptr(), nc,
-        col_buf, col_batch, col_out, row_bytes, strides, words,
-        device.index, torch.cuda.current_stream(device).cuda_stream)
-    _build.raise_on(rc, lib, "elfi_topn_cull")
-    topn_cull.launches += 1
-    out = {"__key": out_keys, **outs}
-    return out, out_idx, (counters[0] if n_acc is None else n_acc)
+    On CUDA one host call launches the kernel's scan and merge (no host
+    read, no memset), exact for any candidate count: ``small_k`` is
+    checked but the kernel needs no width.  On the CPU the plain version
+    runs the cascade.  ``threshold`` is a number or a float32 tensor on the
+    batch's device (one bound, or one per distance column)."""
+    return _cull(buffers, batch, threshold, discrepancy_name,
+                 _widths(small_k))
 
 
 topn_cull.launches = 0

@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from .kernels import topn as _topn
+
 __all__ = ["sort_key", "accept_mask", "make_merge_fn", "init_buffers",
            "merge_core", "merge_core_culled", "merge_scan", "merge_parts"]
 
@@ -91,37 +93,37 @@ def merge_core_culled(buffers, batch, threshold, discrepancy_name,
 
     On the card one host call launches the kernel
     (:func:`.kernels.topn.topn_cull`), which counts the candidates on the
-    device and stays exact for any count; its chunk width is the power of
-    two at or above the widest width.  On the CPU the plain version reads
-    the count and picks the narrowest width that holds it, or the flat
-    merge, as the JAX function's ``lax.cond`` cascade does.
+    device and stays exact for any count, with no width.  On the CPU the
+    plain version reads the count and picks the narrowest width that holds
+    it, or the flat merge, as the JAX function's ``lax.cond`` cascade does.
     """
-    from .kernels.topn import _widths, topn_cull
-    widths = _widths(small_k)
-    if batch[discrepancy_name].shape[0] <= 4 * max(widths):
+    widths = _topn._widths(small_k)
+    if batch[discrepancy_name].shape[0] <= 4 * widths[-1]:
         return merge_core(buffers, batch, threshold, discrepancy_name)
-    out, _, n_acc = topn_cull(buffers, batch, threshold, discrepancy_name,
-                              widths)
+    out, _, n_acc = _topn._cull(buffers, batch, threshold, discrepancy_name,
+                                widths)
     return out, n_acc
 
 
 # The three constants below are scripts/torch_merge_ab.py's A/B on an
 # NVIDIA H100 80GB HBM3 at 700.00 W: fused MA2 rejection, 2**28
 # simulations, 5000 samples; device ms a batch (profiled) and the best of
-# three walls, every arm equal to the flat merge with no unroll.
+# three walls, every arm equal to the flat merge with no unroll.  Numbers
+# with the cull kernel redesigned for Hopper; the first kernel's chose the
+# same values.
 
 #: the fused loop's merge: "culled" (:func:`merge_core_culled` for batches
 #: of at least :data:`CULL_MIN_BATCH` rows) or "flat" (:func:`merge_core`).
-#: Culled beat flat at every batch: device ms a batch 0.592 -> 0.382 on
-#: the kernel graph at 2**21 (2.94e9 -> 3.92e9 sims/s), 0.554 -> 0.486 on
-#: the plain graph at 2**17, 0.968 -> 0.892 at 2**18, 0.344 -> 0.278 at
+#: Culled beat flat at every batch: device ms a batch 0.592 -> 0.3715 on
+#: the kernel graph at 2**21 (2.37e9 -> 3.83e9 sims/s), 0.556 -> 0.485 on
+#: the plain graph at 2**17, 0.968 -> 0.887 at 2**18, 0.345 -> 0.275 at
 #: 2**16 (no unroll, width 4096).
 MERGE_VARIANT = "culled"
-#: the culled merge's width(s) (an int or an ascending tuple); the kernel
-#: chunks the candidates at the power of two at or above the widest.
-#: 1024, 4096, 16384 and the cascade (1024, 4096, 16384) tie within 0.5 %
-#: in device ms at 2**21 (0.3829, 0.3819, 0.3838, 0.3826) and within the
-#: walls' spread elsewhere; 4096, the JAX package's value, stays.
+#: the culled merge's width(s) (an int or an ascending tuple): the small
+#: batch rule's and the CPU cascade's; the kernel needs none.  1024, 4096,
+#: 16384 and the cascade (1024, 4096, 16384) tie in device ms at 2**21
+#: (0.3713, 0.3715, 0.3716, 0.3712) and within the walls' spread
+#: elsewhere; 4096, the JAX package's value, stays.
 CULL_SMALL_K = 4096
 #: the smallest merged batch that takes the culled merge: the smallest
 #: batch measured, 2**16, already gains (above); smaller batches were not
