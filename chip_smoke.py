@@ -28,7 +28,8 @@ Phases, each of which raises on failure (exit code != 0):
    ["d"], batch_size=2**17, device="cuda").sample(5000, n_sim=2048 *
    2**17)``, gated at |posterior mean - (0.6, 0.2)| < 0.05.
 5. The same on the MA2 kernel graph (``models.ma2_kernel``) at batch 2**21;
-   K1's launch count must equal the number of batches.  Both graphs' merges
+   K1's launch count must equal the number of batches (every count here
+   is ``ran``: launches by the host and inside replayed CUDA graphs).  Both graphs' merges
    must go through the cull kernel (``topn_cull``), counted on every path
    that merges.
 5a. The merge (``phase_merge``, at most 30 s): (a) the cull kernel against
@@ -99,6 +100,17 @@ Phases, each of which raises on failure (exit code != 0):
    then the JAX package's ``TestFusedBSL`` point fused and on the host
    (means within 0.15), the unbiased estimator fused and the robust
    ('mean') host chain.
+14a. The CUDA graphs (``phase_capture``, at most 150 s; every path above
+   already runs captured): in one process each path run eagerly
+   (``utils.capture._ENABLED = False``) and captured, held equal bit for
+   bit -- MA2 rejection on both graphs, with a threshold and without, the
+   g-and-k kernel graph, gauss2d SMC and MA2 SMC on the kernel graph, the
+   BSL chain, ``CompiledProgram.jitted`` against ``traceable`` -- with, per
+   mode, the wall, device ms and busy share, the host launches a chunk
+   (two profiled runs differenced), the captures and the kernels'
+   launches inside graphs; K1 and K2 keyed from device memory against
+   the value path, and 20 launches of each inside one graph against 20
+   eager ones, in turns.
 15. BOLFI at the JAX bench's Ricker point (``bench.py:_bench_bolfi_ricker``)
    with no ``device=``: a rejection ground truth over 2**22 simulations
    (batch 2**17, seed 9) within 0.25 SDs of the JAX package's means for the
@@ -561,6 +573,18 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def reset_counts(*fns):
+    """Zero the launch counts of kernel wrappers (``utils.capture``)."""
+    for fn in fns:
+        fn.launches = fn.captured = fn.graph_launches = 0
+
+
+def ran(fn):
+    """Launches of ``fn``'s kernel on the card: by the host, and inside the
+    CUDA graphs replayed (calls recorded by a capture run nothing)."""
+    return fn.launches + fn.graph_launches
+
+
 def ptxas_entries(build_log):
     """(function, registers, spill stores, spill loads, stack frame bytes)
     for every kernel in an ``nvcc -Xptxas=-v`` log."""
@@ -639,9 +663,9 @@ def prior_params(batch, device, seed):
 
 def smc_proposal_params(batch, device):
     """(t1, t2) as the MA2 kernel graph's SMC hands them to K1: the columns
-    of one ``_gm_overrides_fn`` batch, made contiguous as the graph's op
+    of one ``_GMProposals`` batch, made contiguous as the graph's op
     makes them.  The mixture has 500 components at prior draws."""
-    from elfi_tpu_torch.methods.samplers import _gm_overrides_fn
+    from elfi_tpu_torch.methods.samplers import _GMProposals
     from elfi_tpu_torch.methods.utils import GMDistribution
     from elfi_tpu_torch.model.extensions import ModelPrior
     from elfi_tpu_torch.models import ma2_kernel
@@ -650,7 +674,7 @@ def smc_proposal_params(batch, device):
     means = torch.stack(prior_params(500, device, seed=17), dim=1)
     proposal = GMDistribution.prepare(means, np.diag([0.05, 0.05]),
                                       device=device)
-    cols = _gm_overrides_fn(("t1", "t2"), batch, prior, proposal, 23)(1)
+    cols = _GMProposals(("t1", "t2"), batch, prior, proposal, 23)(1)
     check(not cols["t1"].is_contiguous(), "proposal columns are not views")
     return (cols["t1"].to(torch.float32).contiguous(),
             cols["t2"].to(torch.float32).contiguous())
@@ -841,11 +865,11 @@ def phase_main_path(device):
             ("plain graph", ma2, PLAIN_BATCH, 0),
             ("kernel graph", ma2_kernel, KERNEL_BATCH,
              math.ceil(N_SIM / KERNEL_BATCH))):
-        ma2_distance.launches = topn_cull.launches = 0
+        reset_counts(ma2_distance, topn_cull)
         res, dt = timed_sample(mod.get_model(seed_obs=SEED_OBS)["d"], bs,
                                N_SAMPLES, N_SIM, device)
-        launches = ma2_distance.launches
-        cull = topn_cull.launches
+        launches = ran(ma2_distance)
+        cull = ran(topn_cull)
         means = check_sample(res, bs, name)
         sims_s = res.n_sim / dt
         log(f"{name}: batch {bs}, {res.n_batches} batches, {res.n_sim} sims "
@@ -1086,21 +1110,21 @@ def phase_merge(device):
         saved = topk.MERGE_VARIANT, samplers.FUSED_UNROLL
         try:
             topk.MERGE_VARIANT, samplers.FUSED_UNROLL = "flat", 1
-            topn_cull.launches = 0
+            reset_counts(topn_cull)
             base, wall_flat = timed_sample(node, bs, N_SAMPLES, N_SIM,
                                            device, seed=2)
-            check(topn_cull.launches == 0, "the flat merge launched the cull")
+            check(ran(topn_cull) == 0, "the flat merge launched the cull")
         finally:
             topk.MERGE_VARIANT, samplers.FUSED_UNROLL = saved
         rej = et.Rejection(node, batch_size=bs, seed=2, device=device)
         rej._run_fused = sync_guarded(rej._run_fused)
-        topn_cull.launches = 0
+        reset_counts(topn_cull)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = rej.sample(N_SAMPLES, n_sim=N_SIM, bar=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = topn_cull.launches
+        launches = ran(topn_cull)
         check_equal_samples(res, base, f"merge (b) {name}: chosen settings "
                             "against flat with no unroll")
         check_sample(res, bs, f"merge (b) {name}")
@@ -1325,13 +1349,13 @@ def phase_gnk_main_path(device):
                      GNK_BATCH, N_SAMPLES, 2 * GNK_BATCH, device, seed=0)
     out = {}
     for name, mod, expect in graphs:
-        gnk_distance.launches = topn_cull.launches = 0
+        reset_counts(gnk_distance, topn_cull)
         torch.cuda.reset_peak_memory_stats(device)
         m = mod.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
         res, dt = timed_sample(m["d"], GNK_BATCH, N_SAMPLES, GNK_N_SIM,
                                device)
-        launches = gnk_distance.launches
-        cull = topn_cull.launches
+        launches = ran(gnk_distance)
+        cull = ran(topn_cull)
         peak = torch.cuda.max_memory_allocated(device)
         d = res.outputs["d"]
         check(d.shape == (N_SAMPLES,), f"{name}: d has shape {d.shape}")
@@ -1402,7 +1426,7 @@ def weighted_means(res):
 def phase_smc_proposals(device):
     """Proposals and whole single-round runs: fused == batch at a time."""
     import elfi_tpu_torch as et
-    from elfi_tpu_torch.methods.samplers import _gm_overrides_fn
+    from elfi_tpu_torch.methods.samplers import _GMProposals
     from elfi_tpu_torch.methods.utils import GMDistribution
     from elfi_tpu_torch.models import ma2, ma2_kernel
     from elfi_tpu_torch.utils import get_sub_seed
@@ -1418,7 +1442,7 @@ def phase_smc_proposals(device):
     proposal = GMDistribution.prepare(pop.means, wide, pop.weights,
                                       device=device)
     prior = smc._prior.traceable_logpdf()
-    builder = _gm_overrides_fn(smc.parameter_names, batch, prior, proposal,
+    builder = _GMProposals(smc.parameter_names, batch, prior, proposal,
                                get_sub_seed(13, 1))
     key = fold_in(get_sub_seed(13, 1), 0x9E3779B9)
     for i in (3, 4):
@@ -1474,9 +1498,9 @@ def phase_gauss_smc(device):
 
     from elfi_tpu_torch.ops.kernels.topn import topn_cull
     timed_smc(make(3), GAUSS_N, thresholds=GAUSS_THRESHOLDS)    # warm-up
-    topn_cull.launches = 0
+    reset_counts(topn_cull)
     res, dt, _ = timed_smc(make(4), GAUSS_N, thresholds=GAUSS_THRESHOLDS)
-    cull = topn_cull.launches
+    cull = ran(topn_cull)
     means = weighted_means(res)
     err = np.abs(means - obs_mean)
     per_round = [int(p.meta["n_batches"]) for p in res.populations]
@@ -1520,6 +1544,7 @@ def check_ma2_gate(name, res):
 def phase_ma2_smc(device):
     """SMC on both MA2 graphs; K1 runs once per batch on the kernel graph."""
     import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods.samplers import _FUSED_CHUNK
     from elfi_tpu_torch.models import ma2, ma2_kernel
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
     from elfi_tpu_torch.ops.kernels.topn import topn_cull
@@ -1527,25 +1552,28 @@ def phase_ma2_smc(device):
     for name, mod, kernel in (("ma2 smc plain graph", ma2, False),
                               ("ma2 smc kernel graph", ma2_kernel, True)):
         node = mod.get_model(seed_obs=SEED_OBS)["d"]
-        ma2_distance.launches = topn_cull.launches = 0
-        res, dt, _ = timed_smc(
+        reset_counts(ma2_distance, topn_cull)
+        res, dt, smc = timed_smc(
             lambda: et.SMC(node, batch_size=SMC_BATCH, seed=3,
                            device=device),
             500, quantiles=[0.25, 0.25, 0.25])
-        launches = ma2_distance.launches
-        cull = topn_cull.launches
+        launches = ran(ma2_distance)
+        cull = ran(topn_cull)
         means = check_ma2_gate(name, res)
         per_round = [int(p.meta["n_batches"]) for p in res.populations]
-        expect = res.n_batches if kernel else 0
+        # a captured proposal chunk whose batch needed a redraw round runs
+        # again eagerly: its batches launch K1 twice
+        redone = smc.state.get("redone_chunks", 0)
+        expect = res.n_batches + redone * _FUSED_CHUNK if kernel else 0
         log(f"{name}: {dt!r} s, batches per round {per_round}; "
-            f"ma2_distance launches {launches} (expected {expect}); "
-            f"topn_cull launches {cull}")
+            f"ma2_distance launches {launches} (expected {expect}, "
+            f"{redone} chunks run again); topn_cull launches {cull}")
         check(sum(per_round) == res.n_batches, f"{name}: batch counts")
         check(launches == expect, f"{name}: ma2_distance launched "
               f"{launches} times, expected {expect}")
         out[name] = dict(seconds=dt, launches=launches, merge_launches=cull,
                          means=means.tolist(), n_batches=res.n_batches,
-                         batches_per_round=per_round)
+                         batches_per_round=per_round, redone_chunks=redone)
     return out
 
 
@@ -1663,13 +1691,13 @@ def phase_bsl():
         pass
     orig = method.BSL._fused_chain
     method.BSL._fused_chain = sync_guarded(orig)
-    ma2_distance.launches = gnk_distance.launches = 0
+    reset_counts(ma2_distance, gnk_distance)
     try:
         res, dt, bsl = run(4)
     finally:
         method.BSL._fused_chain = orig
-    launches = {"ma2_distance": ma2_distance.launches,
-                "gnk_distance": gnk_distance.launches}
+    launches = {"ma2_distance": ran(ma2_distance),
+                "gnk_distance": ran(gnk_distance)}
     means = res.sample_means_array
     err = np.abs(means - TRUE_PARAMS)
     check(bsl.device == torch.device("cuda", 0),
@@ -1881,7 +1909,7 @@ def phase_bolfi():
     from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
     et.reset_client()
-    k_before = (ma2_distance.launches, gnk_distance.launches)
+    k_before = (ran(ma2_distance), ran(gnk_distance))
     m = ricker_bolfi_model()
     names = ("t1", "t2", "t3")
 
@@ -2111,7 +2139,7 @@ def phase_bolfi():
         f"x_min {({k: float(v[0]) for k, v in x_min.items()})!r}")
     check(np.isfinite(host_post.threshold) and inside,
           "BOLFI host loop: bad threshold or x_min")
-    k_after = (ma2_distance.launches, gnk_distance.launches)
+    k_after = (ran(ma2_distance), ran(gnk_distance))
     check(k_after == k_before, f"BOLFI launched a distance kernel: K1, K2 "
           f"counts {k_before} before the phase, {k_after} after")
     return dict(fit_s=fit_s, sample_s=sample_s, means=means.tolist(),
@@ -2189,7 +2217,7 @@ def phase_bolfire():
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
     from elfi_tpu_torch.utils.rng import fold_in
     et.reset_client()
-    k_before = (ma2_distance.launches, gnk_distance.launches)
+    k_before = (ran(ma2_distance), ran(gnk_distance))
     m = bolfire_gnk_model()
 
     gt_means = gnk_ground_truth()
@@ -2368,7 +2396,7 @@ def phase_bolfire():
     log(f"bolfire test points: fits of 12 rounds, finite, in bounds, 12 "
         f"classifier attributes each; seconds {points!r}")
 
-    k_after = (ma2_distance.launches, gnk_distance.launches)
+    k_after = (ran(ma2_distance), ran(gnk_distance))
     check(k_after == k_before, f"BOLFIRE launched a distance kernel: K1, "
           f"K2 counts {k_before} before the phase, {k_after} after")
     log(f"gnk bolfire: K1, K2 launch counts {k_after} before and after the "
@@ -2463,7 +2491,7 @@ def phase_romc():
     from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
     et.reset_client()
-    k_before = (ma2_distance.launches, gnk_distance.launches)
+    k_before = (ran(ma2_distance), ran(gnk_distance))
     gt_means = gnk_ground_truth()
     m = gnk.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
     bounds = [(0.0, 10.0)] * 4
@@ -2631,7 +2659,7 @@ def phase_romc():
     section("ma2 point")
     log(f"gnk romc, seconds by section: {sections!r}")
 
-    k_after = (ma2_distance.launches, gnk_distance.launches)
+    k_after = (ran(ma2_distance), ran(gnk_distance))
     check(k_after == k_before, f"ROMC launched a distance kernel: K1, K2 "
           f"counts {k_before} before the phase, {k_after} after")
     log(f"gnk romc: K1, K2 launch counts {k_after} before and after the "
@@ -2710,7 +2738,7 @@ def phase_zoo(device):
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
     from scripts.torch_zoo_reference import N_SAMPLES, N_SIM
     et.reset_client()
-    k_before = (ma2_distance.launches, gnk_distance.launches)
+    k_before = (ran(ma2_distance), ran(gnk_distance))
     results = {}
     t_phase = time.perf_counter()
     for name in ("ar1", "arch", "mg1", "stochastic_volatility", "lorenz",
@@ -2783,7 +2811,7 @@ def phase_zoo(device):
         r["seconds"] = time.perf_counter() - t_model
         log(f"zoo {name}: {json.dumps(r)}")
         results[name] = r
-    k_after = (ma2_distance.launches, gnk_distance.launches)
+    k_after = (ran(ma2_distance), ran(gnk_distance))
     check(k_after == k_before, f"the zoo launched a distance kernel: K1, K2 "
           f"counts {k_before} before the phase, {k_after} after")
     log(f"zoo: gates (a)-(d) passed on {len(results)} models in "
@@ -2945,7 +2973,7 @@ def phase_pool(device):
     kw = dict(batch_size=KERNEL_BATCH, seed=POOL_SEED)
     n_a = POOL_BATCHES * KERNEL_BATCH
     n_c = (POOL_BATCHES + POOL_EXTRA) * KERNEL_BATCH
-    k2_before = gnk_distance.launches
+    k2_before = ran(gnk_distance)
     # warm-up: the allocator at this batch, two batches at a time
     et.Rejection(m["d"], **kw).sample(N_SAMPLES, n_sim=2 * KERNEL_BATCH,
                                       fused=False, bar=False)
@@ -2954,10 +2982,10 @@ def phase_pool(device):
 
     from elfi_tpu_torch.ops.kernels.topn import topn_cull
     pool = et.OutputPool(["t1", "t2", "d"])
-    ma2_distance.launches = topn_cull.launches = 0
+    reset_counts(ma2_distance, topn_cull)
     rej_a, a, wall_a = timed_rejection(
         lambda: et.Rejection(m["d"], pool=pool, **kw), n_sim=n_a)
-    launches_a = ma2_distance.launches
+    launches_a = ran(ma2_distance)
     check(launches_a == POOL_BATCHES, f"pooled run: K1 launched "
           f"{launches_a} times, expected {POOL_BATCHES}")
     check(len(pool) == POOL_BATCHES, f"pool holds {len(pool)} batches")
@@ -2965,11 +2993,11 @@ def phase_pool(device):
     check_equal_samples(a, ref, "(a) pooled vs pool-less")
     timers_a = rej_a.batches.timers.report()
 
-    ma2_distance.launches = 0
+    reset_counts(ma2_distance)
     with count_prior_draws() as draws:
         rej_b, b, wall_b = timed_rejection(
             lambda: et.Rejection(m["d"], pool=pool, **kw), n_sim=n_a)
-    launches_b = ma2_distance.launches
+    launches_b = ran(ma2_distance)
     check(launches_b == 0, f"replay: K1 launched {launches_b} times")
     check(draws.n == 0, f"replay: the priors drew {draws.n} times")
     check(all(v.device == device for v in rej_b.state["samples"].values()),
@@ -2984,13 +3012,13 @@ def phase_pool(device):
         torch.cuda.synchronize()
         h2d.append(time.perf_counter() - t0)
 
-    ma2_distance.launches = 0
+    reset_counts(ma2_distance)
     rej_c, c, wall_c = timed_rejection(
         lambda: et.Rejection(m["d"], pool=pool, **kw), n_sim=n_c)
-    launches_c = ma2_distance.launches
+    launches_c = ran(ma2_distance)
     # a pool runs batch at a time, whose merge is the flat one (as in the
     # JAX package)
-    pool_cull = topn_cull.launches
+    pool_cull = ran(topn_cull)
     check(launches_c == POOL_EXTRA, f"extension: K1 launched {launches_c} "
           f"times, expected {POOL_EXTRA}")
     check(len(pool) == POOL_BATCHES + POOL_EXTRA,
@@ -3003,7 +3031,7 @@ def phase_pool(device):
         check("pool" in str(e), f"(d) raised {e!r}")
     else:
         raise AssertionError("(d) fused=True with a pool did not raise")
-    check(gnk_distance.launches == k2_before, "K2 launched in the pool phase")
+    check(ran(gnk_distance) == k2_before, "K2 launched in the pool phase")
 
     # one pooled batch under the profiler: the copy off the card
     ppool = et.OutputPool(["t1", "t2", "d"])
@@ -3130,7 +3158,7 @@ def phase_persistence_aux(device):
     et.reset_client()
     out = {}
     mk = ma2_kernel.get_model(seed_obs=SEED_OBS)
-    ma2_distance.launches = 0
+    reset_counts(ma2_distance)
     r1 = et.Rejection(mk["d"], batch_size=KERNEL_BATCH, seed=21).sample(
         N_SAMPLES, n_sim=4 * KERNEL_BATCH, bar=False)
     check(device in mk["d"].state["op"]._obs_on,
@@ -3144,9 +3172,9 @@ def phase_persistence_aux(device):
     r2 = et.Rejection(loaded["d"], batch_size=KERNEL_BATCH, seed=21).sample(
         N_SAMPLES, n_sim=4 * KERNEL_BATCH, bar=False)
     check_equal_samples(r2, r1, "loaded model")
-    out["persistence_launches"] = ma2_distance.launches
+    out["persistence_launches"] = ran(ma2_distance)
     check(out["persistence_launches"] == 8,
-          f"persistence: K1 launched {ma2_distance.launches} times")
+          f"persistence: K1 launched {ran(ma2_distance)} times")
     log(f"persistence: MA2 kernel model saved from the card ({len(raw)} "
         f"bytes, no CUDA tensor) and loaded: samples equal at seed 21")
 
@@ -3292,7 +3320,7 @@ def phase_distributions(device):
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
     from scripts.torch_prior_reference import REJ, SMC, port_model
     et.reset_client()
-    k_before = (ma2_distance.launches, gnk_distance.launches)
+    k_before = (ran(ma2_distance), ran(gnk_distance))
     rng = np.random.default_rng(0)
     out = {}
     for i, (name, params, xr, fns) in enumerate(DIST_CASES):
@@ -3384,7 +3412,7 @@ def phase_distributions(device):
                                          err=err.tolist())
         log(f"gamma/beta {kind}: means {means.tolist()!r}, |err| to JAX "
             f"{err.tolist()!r} (tolerance {GB_TOL[kind].tolist()})")
-    k_after = (ma2_distance.launches, gnk_distance.launches)
+    k_after = (ran(ma2_distance), ran(gnk_distance))
     check(k_after == k_before, "a distance kernel launched in the "
           "distributions phase")
     log(f"gamma/beta on the card: rejection {REJ['n_sim']} sims in "
@@ -3403,11 +3431,11 @@ def phase_default_device():
     m = ma2_kernel.get_model(seed_obs=SEED_OBS)
     from elfi_tpu_torch.ops.kernels.topn import topn_cull
     rej = et.Rejection(m["d"], batch_size=KERNEL_BATCH, seed=1)
-    ma2_distance.launches = topn_cull.launches = 0
+    reset_counts(ma2_distance, topn_cull)
     res = rej.sample(1000, n_sim=8 * KERNEL_BATCH, bar=False)
     torch.cuda.synchronize()
-    launches = ma2_distance.launches
-    cull = topn_cull.launches
+    launches = ran(ma2_distance)
+    cull = ran(topn_cull)
     where = {rej.device, *(v.device for v in rej.state["samples"].values())}
     log(f"default device: Rejection without device= ran on "
         f"{sorted(map(str, where))}; ma2_distance launches {launches} "
@@ -3479,13 +3507,13 @@ def multihost_rank(rank, address, out_dir, device, batch, n_samples):
     et.Rejection(m["d"], batch_size=batch, seed=BACKENDS_SEED + 1).sample(
         n_samples, n_sim=2 * batch, bar=False)
     dist.barrier()
-    ma2_distance.launches = 0
+    reset_counts(ma2_distance)
     res, wall = _timed(lambda: et.Rejection(
         m["d"], batch_size=batch, seed=BACKENDS_SEED).sample(
         n_samples, n_sim=MULTIHOST_BATCHES * batch, bar=False))
     np.save(out / f"rank{rank}.npy", res.samples_array)
     (out / f"rank{rank}.json").write_text(json.dumps(dict(
-        launches=ma2_distance.launches, wall_s=wall)))
+        launches=ran(ma2_distance), wall_s=wall)))
     dist.destroy_process_group()
     return 0
 
@@ -3597,9 +3625,9 @@ def phase_backends(device):
     try:
         # (c) first, before any worker exists: the master computes locally
         cluster = ClusterBackend(device=device)
-        ma2_distance.launches = 0
+        reset_counts(ma2_distance)
         local, wall = _timed(lambda: kernel_rejection(cluster))
-        launches["cluster local"] = ma2_distance.launches
+        launches["cluster local"] = ran(ma2_distance)
         check(launches["cluster local"] == CLUSTER_LOCAL_BATCHES,
               f"the cluster master launched K1 {launches['cluster local']} "
               f"times, expected {CLUSTER_LOCAL_BATCHES}")
@@ -3621,17 +3649,17 @@ def phase_backends(device):
                    "two": two}
         runs, walls = {}, {name: [] for name in clients}
         for name in ("native", "one", "two", "two", "one", "native"):
-            ma2_distance.launches = topn_cull.launches = 0
+            reset_counts(ma2_distance, topn_cull)
             runs[name], wall = _timed(lambda c=clients[name]:
                                       kernel_rejection(c, BACKENDS_BATCHES))
-            check(ma2_distance.launches == BACKENDS_BATCHES,
+            check(ran(ma2_distance) == BACKENDS_BATCHES,
                   f"rejection on {name}: K1 launched "
-                  f"{ma2_distance.launches} times, expected "
+                  f"{ran(ma2_distance)} times, expected "
                   f"{BACKENDS_BATCHES}")
             walls[name].append(wall)
             if name == "two":
-                launches["list rejection"] = ma2_distance.launches
-                cull["list rejection"] = topn_cull.launches
+                launches["list rejection"] = ran(ma2_distance)
+                cull["list rejection"] = ran(topn_cull)
         out["list_rejection_wall_s"] = walls
         for name in ("one", "two"):
             check_equal_samples(runs[name], runs["native"],
@@ -3642,17 +3670,20 @@ def phase_backends(device):
         smc, smc_walls = {}, {"native": [], "two": []}
         for name in ("native", "two", "two", "native"):
             et.set_client(clients[name])
-            ma2_distance.launches = topn_cull.launches = 0
-            smc[name], wall = _timed(lambda: et.SMC(
-                mk["d"], batch_size=SMC_BATCH, seed=3).sample(
+            reset_counts(ma2_distance, topn_cull)
+            sampler = et.SMC(mk["d"], batch_size=SMC_BATCH, seed=3)
+            smc[name], wall = _timed(lambda: sampler.sample(
                 500, quantiles=[0.25, 0.25, 0.25], bar=False))
-            check(ma2_distance.launches == smc[name].n_batches,
-                  f"SMC on {name}: K1 {ma2_distance.launches} times for "
-                  f"{smc[name].n_batches} batches")
+            # natively, a captured proposal chunk that needed a redraw
+            # round runs again eagerly (16 batches: K1 twice)
+            redone = sampler.state.get("redone_chunks", 0)
+            check(ran(ma2_distance) == smc[name].n_batches + 16 * redone,
+                  f"SMC on {name}: K1 {ran(ma2_distance)} times for "
+                  f"{smc[name].n_batches} batches, {redone} chunks again")
             smc_walls[name].append(wall)
             if name == "two":
-                launches["list smc"] = ma2_distance.launches
-                cull["list smc"] = topn_cull.launches
+                launches["list smc"] = ran(ma2_distance)
+                cull["list smc"] = ran(topn_cull)
         out["list_smc_wall_s"] = smc_walls
         check(np.array_equal(smc["two"].samples_array,
                              smc["native"].samples_array),
@@ -3662,15 +3693,15 @@ def phase_backends(device):
         gnk_runs = {}
         for name in ("native", "two"):
             et.set_client(clients[name])
-            gnk_distance.launches = topn_cull.launches = 0
+            reset_counts(gnk_distance, topn_cull)
             gnk_runs[name], wall = _timed(lambda: et.Rejection(
                 mg["d"], batch_size=GNK_BATCH, seed=BACKENDS_SEED).sample(
                 1000, n_sim=GNK_LIST_BATCHES * GNK_BATCH, bar=False))
-            check(gnk_distance.launches == GNK_LIST_BATCHES,
-                  f"g-and-k on {name}: K2 {gnk_distance.launches} times")
+            check(ran(gnk_distance) == GNK_LIST_BATCHES,
+                  f"g-and-k on {name}: K2 {ran(gnk_distance)} times")
             out[f"list_gnk_{name}_wall_s"] = wall
-        launches["list gnk"] = gnk_distance.launches
-        cull["list gnk"] = topn_cull.launches
+        launches["list gnk"] = ran(gnk_distance)
+        cull["list gnk"] = ran(topn_cull)
         check_equal_samples(gnk_runs["two"], gnk_runs["native"],
                             "g-and-k rejection over the list")
 
@@ -3976,6 +4007,335 @@ def phase_profile(device, main_path):
     log_top(events, device_us, nb)
 
 
+CAPTURE_LIMIT_S = 150.0
+CAPTURE_CHUNKS = (3, 6)       # chunks of the two profiled rejection runs
+CAPTURE_KERNEL_REPS = 20      # kernel launches in one timed graph
+
+
+def capture_modes(fn):
+    """``fn(mode)`` for mode "eager" (``capture._ENABLED = False``) then
+    "captured", in one process; returns {mode: result}."""
+    from elfi_tpu_torch.utils import capture
+    out = {}
+    for mode in ("eager", "captured"):
+        capture._ENABLED = mode == "captured"
+        try:
+            out[mode] = fn(mode)
+        finally:
+            capture._ENABLED = True
+    return out
+
+
+def launch_calls(prof):
+    """Host launches of a profile that ran on the card (a graph replay is
+    one)."""
+    return len(executed_launches(prof.profiler.kineto_results.events()))
+
+
+def cull_kernels_per_merge(events, merges):
+    """The cull's device kernels (scan and merge) per merge in a profile."""
+    n = sum(e.count for e in card_events(events) if "cull_" in e.key)
+    return n / max(merges, 1)
+
+
+def loop_graphs(sampler, proposals=False):
+    """The CUDA graphs of a sampler's fused loop: its program's (with
+    ``proposals``, an SMC's rounds >= 1's)."""
+    from elfi_tpu_torch.compile.compiler import compile_program
+    return compile_program(
+        sampler.model, tuple(sampler.output_names),
+        override_names=tuple(sorted(sampler.parameter_names))
+        if proposals else (), device=sampler.device).replays
+
+
+def capture_rejection(device, name, node, batch, seed, threshold=None):
+    """Captured against eager on one rejection path: the runs equal bit
+    for bit, and per mode the wall, device ms and busy share of a steady
+    run, the host launches a chunk (two profiled runs of CAPTURE_CHUNKS
+    chunks on one sampler, differenced), the captures and K1/K2/cull
+    launches inside graphs."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods.samplers import _FUSED_CHUNK
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
+    c1, c2 = (c * _FUSED_CHUNK * batch for c in CAPTURE_CHUNKS)
+    kw = {} if threshold is None else dict(threshold=threshold)
+
+    def run(mode):
+        rej = et.Rejection(node, batch_size=batch, seed=seed, device=device)
+        sample = (lambda n_sim: rej.sample(N_SAMPLES, n_sim=n_sim,
+                                           bar=False)) if threshold is None \
+            else (lambda n_sim: rej.sample(N_SAMPLES, bar=False, **kw))
+        sample(c1)                      # records, captures
+        reset_counts(ma2_distance, gnk_distance, topn_cull)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sample(c2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {f.__name__: dict(host=f.launches, in_graphs=f.graph_launches)
+                  for f in (ma2_distance, gnk_distance, topn_cull)}
+        out = dict(result=res, wall_s=wall, counts=counts,
+                   batches=res.n_batches)
+        if threshold is not None:
+            return out
+        profs = []
+        for n_sim in (c1, c2):
+            merges0 = ran(topn_cull)
+            _, prof = profiled(lambda: sample(n_sim))
+            events, us = device_table(prof)
+            profs.append((launch_calls(prof), us, events,
+                          ran(topn_cull) - merges0))
+        (l1, u1, _, _), (l2, u2, events, merges) = profs
+        chunks = CAPTURE_CHUNKS[1] - CAPTURE_CHUNKS[0]
+        out.update(device_ms=u2 / 1e3, busy_share=u2 / 1e3 / (wall * 1e3),
+                   host_launches_per_chunk=(l2 - l1) / chunks,
+                   device_ms_per_chunk=(u2 - u1) / 1e3 / chunks,
+                   captures=loop_graphs(rej).captures,
+                   cull_kernels_per_merge=cull_kernels_per_merge(
+                       events, merges))
+        return out
+
+    modes = capture_modes(run)
+    e, c = modes["eager"], modes["captured"]
+    names = [k for k in e["result"].outputs]
+    check_equal_samples(c["result"], e["result"], f"{name}: captured and "
+                        "eager", names)
+    check(c["batches"] == e["batches"], f"{name}: batch counts differ")
+    for mode in modes.values():
+        del mode["result"]
+    if threshold is None:
+        check(c["counts"]["topn_cull"]["in_graphs"] > 0,
+              f"{name}: no merge ran inside a graph")
+    log(f"capture, {name}: captured equals eager bit for bit; "
+        + "; ".join(f"{m}: {v!r}" for m, v in modes.items()))
+    return modes
+
+
+def capture_smc(device, name, node, batch, n, **kw):
+    """Captured against eager on one SMC path: populations and weights
+    equal bit for bit; per mode the wall of a run (captures included), its
+    device ms and busy share from a profiled run, host launches a chunk,
+    captures and the chunks run again for a redraw."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods.samplers import _FUSED_CHUNK
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+
+    def run(mode):
+        make = (lambda: et.SMC(node, batch_size=batch, seed=4,
+                               device=device))
+        _, _, warm = timed_smc(make, n, **kw)   # warm-up: records, captures
+        graphs = loop_graphs(warm, proposals=True)
+        captures0, replays0 = graphs.captures, graphs.replays
+        reset_counts(ma2_distance)
+        res, wall, smc = timed_smc(make, n, **kw)
+        k1 = dict(host=ma2_distance.launches,
+                  in_graphs=ma2_distance.graph_launches)
+        (prof_res, _, psmc), prof = profiled(lambda: timed_smc(make, n, **kw))
+        events, us = device_table(prof)
+        chunks = sum(-(-p.meta["n_batches"] // _FUSED_CHUNK)
+                     for p in prof_res.populations)
+        return dict(result=res, wall_s=wall, device_ms=us / 1e3,
+                    busy_share=us / 1e3 / (wall * 1e3),
+                    host_launches_per_chunk=launch_calls(prof) / chunks,
+                    captures=graphs.captures - captures0,
+                    replays=graphs.replays - replays0,
+                    redone_chunks=(warm.state.get("redone_chunks", 0)
+                                   + smc.state.get("redone_chunks", 0)),
+                    k1=k1, batches=res.n_batches)
+
+    modes = capture_modes(run)
+    e, c = modes["eager"]["result"], modes["captured"]["result"]
+    check(len(e.populations) == len(c.populations),
+          f"{name}: round counts differ")
+    for pe, pc in zip(e.populations, c.populations):
+        check_equal_samples(pc, pe, f"{name}: captured and eager")
+        check(np.array_equal(pc.weights, pe.weights),
+              f"{name}: the weights differ")
+    for mode in modes.values():
+        del mode["result"]
+    # gauss2d's proposals stay inside its wide prior, so its rounds
+    # replay; MA2's leave the triangle, so each round's first chunk is
+    # replayed, flagged and run again eagerly, and the rest of the round
+    # runs eagerly
+    c = modes["captured"]
+    gauss2d = name.startswith("gauss2d")
+    check(c["replays"] > 0, f"{name}: no chunk of a round >= 1 replayed")
+    check(c["redone_chunks"] == 0 if gauss2d else c["redone_chunks"] > 0,
+          f"{name}: {c['redone_chunks']} chunks redone")
+    scope = ("every chunk of its rounds replayed" if gauss2d else
+             "rounds >= 1 replay their first chunk and redo it eagerly, "
+             "so past it this compares eager with eager")
+    log(f"capture, {name} ({scope}): captured equals eager bit for bit; "
+        + "; ".join(f"{m}: {v!r}" for m, v in modes.items()))
+    return modes
+
+
+def capture_bsl(device):
+    """The BSL chain at the bench's point captured against eager: the
+    chain bit for bit, ms a step, device ms a step and busy share, host
+    launches a step, captures."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.methods.bsl import standard_likelihood
+    from elfi_tpu_torch.models import ma2
+    m = ma2.get_model(seed_obs=SEED_OBS)
+    lik = standard_likelihood(shrinkage="warton", penalty=0.3)
+
+    def chain(seed, n_steps):
+        b = et.BSL(m, n_sim_round=BSL_N_SIM_ROUND, feature_names=["S1", "S2"],
+                   likelihood=lik, seed=seed, device=device)
+        return b, b.sample(n_steps, **BSL_SAMPLE_KW)
+
+    def run(mode):
+        chain(3, 33)                                        # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b, res = chain(4, BSL_N)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # a step's launches and device ms: two profiled chains, differenced
+        # (1 + 2 x 16 and 1 + 6 x 16 steps: whole blocks of _CHAIN_BLOCK)
+        (n1, n2), profs = (33, 97), []
+        for n_steps in (n1, n2):
+            _, prof = profiled(lambda: chain(4, n_steps))
+            profs.append((launch_calls(prof), device_table(prof)[1]))
+        (l1, u1), (l2, u2) = profs
+        device_ms = (u2 - u1) / 1e3 / (n2 - n1)
+        return dict(result=res, ms_per_step=wall * 1e3 / BSL_N,
+                    device_ms_per_step=device_ms,
+                    busy_share=device_ms / (wall * 1e3 / BSL_N),
+                    host_launches_per_step=(l2 - l1) / (n2 - n1),
+                    captures=b._chain_replays.captures,
+                    replays=b._chain_replays.replays)
+
+    modes = capture_modes(run)
+    e, c = modes["eager"]["result"], modes["captured"]["result"]
+    for k in e.samples_all:
+        check(np.array_equal(c.samples_all[k], e.samples_all[k]),
+              f"BSL: captured and eager chains differ in {k}")
+    for mode in modes.values():
+        del mode["result"]
+    check(modes["captured"]["captures"] == 1, "BSL: not one capture a run")
+    log("capture, ma2 bsl: captured equals eager bit for bit; "
+        + "; ".join(f"{m}: {v!r}" for m, v in modes.items()))
+    return modes
+
+
+def capture_kernel_times(device):
+    """K1 and K2 at the main path's shapes: CAPTURE_KERNEL_REPS launches
+    keyed from device memory inside one graph against as many launches
+    keyed by value, queued ahead, in turns (eager, graph, graph, eager);
+    ms a launch."""
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.utils import capture
+    t1, t2 = prior_params(KERNEL_BATCH, device, seed=1)
+    obs = observed_autocovs(device)
+    A, B, g, k = gnk_prior_params(GNK_BATCH, device, seed=1)
+    gobs = gnk_observed_sorted(GNK_N_OBS, device)
+    seed = 0x123456789ABCDEF
+    key = torch.tensor(capture.pack_keys([seed]), device=device)
+    calls = {
+        "ma2_distance": lambda key: ma2_distance(
+            t1, t2, obs, n_obs=N_OBS, batch_size=KERNEL_BATCH, key=key),
+        "gnk_distance": lambda key: gnk_distance(
+            A, B, g, k, gobs, n_obs=GNK_N_OBS, batch_size=GNK_BATCH,
+            key=key)}
+    out = {}
+    for name, call in calls.items():
+        check(torch.equal(call(seed), call(key)),
+              f"{name}: keyed from device memory differs")
+        with capture.on_side_stream(device):
+            call(key)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin()
+            outs = [call(key) for _ in range(CAPTURE_KERNEL_REPS)]
+            graph.capture_end()
+        graph.replay()
+        check(all(torch.equal(o, call(seed)) for o in outs),
+              f"{name}: the graph's launches differ from eager")
+
+        def eager():
+            for _ in range(CAPTURE_KERNEL_REPS):
+                call(seed)
+        times = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            fn = eager if mode == "eager" else graph.replay
+            times[mode].append(queued_ms(fn, reps=10)
+                               / CAPTURE_KERNEL_REPS)
+        e = statistics.median(times["eager"])
+        gm = statistics.median(times["graph"])
+        out[name] = dict(eager_ms=e, graph_ms=gm, ratio=gm / e)
+        del graph, outs
+    log(f"capture, kernels in a graph (keyed from device memory) against "
+        f"eager (keyed by value): {out!r}")
+    return out
+
+
+def phase_capture(device):
+    """The CUDA graphs (``utils.capture``): every captured path against
+    the same path run eagerly in this process, bit for bit, with walls,
+    device ms, busy shares, host launches a chunk and captures; K1 and K2
+    inside a graph against eager; ``CompiledProgram.jitted`` against
+    ``traceable``."""
+    import elfi_tpu_torch as et
+    from elfi_tpu_torch.compile.compiler import compile_program
+    from elfi_tpu_torch.models import gauss, gnk_kernel, ma2, ma2_kernel
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    t0 = time.perf_counter()
+    out = {}
+    walls = out["path_walls_s"] = {}
+
+    def timed_path(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out[name] = fn(*args, **kw)
+        walls[name] = time.perf_counter() - t
+
+    plain = ma2.get_model(seed_obs=SEED_OBS)["d"]
+    kern = ma2_kernel.get_model(seed_obs=SEED_OBS)["d"]
+    for name, node, batch in (
+            ("ma2 rejection plain graph", plain, PLAIN_BATCH),
+            ("ma2 rejection kernel graph", kern, KERNEL_BATCH),
+            ("gnk rejection kernel graph", gnk_kernel.get_model(
+                n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)["d"], GNK_BATCH)):
+        timed_path(name, capture_rejection, device, name, node, batch, 1)
+    for name, node in (("plain", plain), ("kernel", kern)):
+        timed_path(f"ma2 rejection {name} graph, threshold",
+                   capture_rejection, device,
+                   f"ma2 rejection {name} graph, threshold 0.1", node,
+                   2**16, 2, threshold=0.1)
+    g2 = gauss.get_model(**GAUSS_KW)
+    timed_path("gauss2d smc", capture_smc, device, "gauss2d smc", g2["d"],
+               GAUSS_BATCH, GAUSS_N, thresholds=GAUSS_THRESHOLDS)
+    # MA2 SMC on the kernel graph (the plain graph's rounds run as its
+    # do: each round's first chunk replayed and redone, the rest eagerly)
+    timed_path("ma2 smc kernel graph", capture_smc, device,
+               "ma2 smc kernel graph", kern, SMC_BATCH, 500,
+               quantiles=[0.5, 0.2, 0.2])
+    timed_path("ma2 bsl", capture_bsl, device)
+    timed_path("kernels in a graph", capture_kernel_times, device)
+
+    # jitted: the per-batch program replayed against traceable
+    prog = compile_program(ma2_kernel.get_model(seed_obs=SEED_OBS),
+                           ("t1", "t2", "d"), device=device)
+    reset_counts(ma2_distance)
+    for seed, b in ((1, 0), (1, 1), (1, 2), (2, 7), (3, 2**40)):
+        got = prog.run(seed, b, batch_size=KERNEL_BATCH)
+        want = prog.traceable(KERNEL_BATCH)(seed, b, {})
+        for k in want:
+            check(torch.equal(got[k], want[k]),
+                  f"jitted: {k} at ({seed}, {b}) differs from traceable")
+    out["jitted"] = dict(k1_host=ma2_distance.launches,
+                         k1_in_graphs=ma2_distance.graph_launches)
+    check(ma2_distance.graph_launches == 4, "jitted: K1 not replayed")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"capture phase: {out['wall_s']!r} s (limit {CAPTURE_LIMIT_S}); "
+        f"by path {walls!r}")
+    check(out["wall_s"] < CAPTURE_LIMIT_S, "the capture phase is too slow")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this "
@@ -4023,6 +4383,7 @@ def main():
     adaptive.update(phase_adaptive_smc(device))
     phase_profile(device, main_path)
     main_path["ma2 bsl"] = phase_bsl()
+    captured = phase_capture(device)
     main_path["ricker bolfi"] = phase_bolfi()
     main_path["gnk bolfire"] = phase_bolfire()
     main_path["variance acquisitions"] = phase_variance_acquisitions()
@@ -4045,6 +4406,7 @@ def main():
                                  f"gnk_{GNK_BATCH}": k2_checks["merge_ms"]},
                     "merge": merge,
                     "adaptive": adaptive,
+                    "capture": captured,
                     "card": card}))
     pool_launches = main_path["pool"]["launches"]
     bl = backends["launches"]
@@ -4107,6 +4469,8 @@ def main():
         "ops_per_sim": k1_ops(N_OBS),
         "library_ms": None,
         "ptxas": ptxas["ma2_distance"],
+        "graph_ms": captured["kernels in a graph"]["ma2_distance"][
+            "graph_ms"],
     }, {
         "name": "gnk_distance",
         "route": "cuda",
@@ -4128,6 +4492,8 @@ def main():
         "ops_per_sim": k2_ops(GNK_N_OBS),
         "library_ms": None,
         "ptxas": ptxas["gnk_distance"],
+        "graph_ms": captured["kernels in a graph"]["gnk_distance"][
+            "graph_ms"],
     }, {
         "name": "topn_cull",
         "route": "cuda",

@@ -14,9 +14,22 @@ asynchronous launch, so calling ``fn`` does not wait for the device.
   device.
 - RNG: a stochastic node gets ``generator=``, a ``torch.Generator`` on the
   device seeded with ``stream_seed(seed, batch_index, node_uid(name))``
-  (:mod:`elfi_tpu_torch.utils.rng`).  ``generator.initial_seed()`` is that
-  64-bit integer, for ops (such as the MA2 kernel) that seed their own
-  generator with it.
+  (:func:`elfi_tpu_torch.utils.rng.node_generator`).  An op that keys its
+  own stream (the MA2 and g-and-k kernels) takes
+  :func:`~elfi_tpu_torch.utils.rng.stream_key` of it: that 64-bit integer,
+  or inside a CUDA graph a device tensor holding it.
+- :meth:`CompiledProgram.jitted` is the per-batch function compiled: on a
+  CUDA device it replays a CUDA graph of it (:mod:`elfi_tpu_torch.utils.
+  capture`), equal to the eager call bit for bit; :meth:`CompiledProgram.
+  run` goes through it.  Capture is opt-in: a program is captured only if
+  every node it computes is a constant, a prior whose distribution is
+  marked ``capturable = True``, or an op so marked (or a partial of one)
+  that does not take ``meta``.  The mark says that the op draws only
+  through its ``generator`` (or :func:`~elfi_tpu_torch.utils.rng.
+  stream_key` of it), never reads the device back and copies nothing from
+  the host in a call.  Any other program (an op that seeds a generator of
+  its own from ``generator.initial_seed()``, as ``vectorize_traced`` does,
+  a host node, a user's op not yet checked) runs eagerly.
 
 Graphs with ``host=True`` nodes (external simulators, numpy-only ops,
 scipy priors) run through :meth:`CompiledProgram.run_host`: the same walk,
@@ -28,13 +41,15 @@ seeded from its stream seed
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from ..model.model import node_uid
 from ..ops.distributions import host_seed
-from ..utils import to_numpy, to_tensor
-from ..utils.rng import generator, stream_seed
+from ..utils import capture, to_numpy, to_tensor
+from ..utils.rng import generator, node_generator, stream_seed
 
 __all__ = ["compile_program", "CompiledProgram"]
 
@@ -46,6 +61,23 @@ def _adaptive_versions(model):
     return tuple(sorted(
         (n, st["_adaptive_state"].get("version", 0))
         for n, st in model.dag.nodes.items() if st.get("adaptive")))
+
+
+def _marked(obj):
+    """Whether ``obj`` (an op, a partial of one, or a distribution) is
+    marked ``capturable = True``."""
+    return bool(getattr(obj, "capturable", getattr(
+        getattr(obj, "func", None), "capturable", False)))
+
+
+def _node_capturable(state):
+    """Whether a node's computation may be captured (module docstring)."""
+    kind = state["kind"]
+    if kind == "constant":
+        return True
+    if kind == "rv":
+        return _marked(state["distribution"])
+    return not state.get("uses_meta") and _marked(state.get("op"))
 
 
 def compile_program(model, outputs, override_names=(), *, device):
@@ -104,8 +136,16 @@ class CompiledProgram:
                       if n in needed]
         self.host = any(model.dag.get_state(n).get("host", False)
                         for n in self.order)
+        #: whether :meth:`jitted` can capture the per-batch function
+        self.capturable = not self.host and all(
+            _node_capturable(model.dag.get_state(n)) for n in self.order
+            if n not in self.override_names)
         self._observed = {}
         self._traceables = {}
+        self._jitted = {}
+        #: the CUDA graphs of the fused loops that run this program (their
+        #: chunks), shared by every sampler that runs it
+        self.replays = capture.Replays()
 
     # programs ship to pool and cluster workers: the observed tensors (on
     # the device) and the per-batch closures stay in this process; the
@@ -114,6 +154,8 @@ class CompiledProgram:
         d = self.__dict__.copy()
         d["_observed"] = {}
         d["_traceables"] = {}
+        d["_jitted"] = {}
+        d["replays"] = capture.Replays()
         return d
 
     def __setstate__(self, d):
@@ -187,8 +229,7 @@ class CompiledProgram:
                     "model_name": model_name, "submission_index": batch_index}
 
             def gen(name):
-                return generator(stream_seed(seed, batch_index, uids[name]),
-                                 device)
+                return node_generator(seed, batch_index, uids[name], device)
 
             vals = {}
             for name in order:
@@ -231,6 +272,28 @@ class CompiledProgram:
             return {o: vals[o] for o in self.outputs}
 
         self._traceables[batch_size] = fn
+        return fn
+
+    def jitted(self, batch_size):
+        """:meth:`traceable` compiled, the counterpart of the JAX package's
+        ``jitted``: a function of the same signature.  On a CUDA device it
+        keeps one CUDA graph per override signature (names, shapes,
+        dtypes): the first call with a signature runs eagerly and is
+        recorded, the second captures the graph, and every call from then
+        on copies the overrides into the graph's static inputs, seeds its
+        streams for ``(seed, batch_index)`` and replays it.  It returns the
+        graph's static outputs, which the next replay overwrites.  On the
+        CPU it is :meth:`traceable` itself."""
+        if not capture.enabled(self.device):
+            return self.traceable(batch_size)
+        if not self.capturable:
+            raise ValueError(
+                "this program cannot be captured: it has a host node, an op "
+                "with uses_meta, or a node not marked capturable = True")
+        fn = self._jitted.get(batch_size)
+        if fn is None:
+            fn = self._jitted[batch_size] = _Jitted(
+                self.traceable(batch_size), self.device)
         return fn
 
     # -- host execution (external / numpy simulators) ------------------------
@@ -319,4 +382,40 @@ class CompiledProgram:
                 "with override_names including them")
         if self.host:
             return self.run_host(seed, batch_index, overrides, batch_size)
+        if (capture.enabled(self.device) and self.capturable
+                and not any(isinstance(v, torch.Tensor) and v.requires_grad
+                            for v in overrides.values())):
+            out = self.jitted(batch_size)(seed, int(batch_index), overrides)
+            # the graph's outputs are overwritten by its next replay
+            return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                    for k, v in out.items()}
         return self.traceable(batch_size)(seed, int(batch_index), overrides)
+
+
+class _Jitted:
+    """:meth:`CompiledProgram.jitted` on a CUDA device."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = device
+        self.replays = capture.Replays()
+
+    def __call__(self, seed, batch_index, overrides):
+        ov = {k: to_tensor(v, self.device) for k, v in overrides.items()}
+        key = tuple(sorted((k, tuple(v.shape), v.dtype, v.stride())
+                           for k, v in ov.items()))
+        fn = self.fn
+
+        def body(state, start):
+            return {}, fn(seed, start, state)
+
+        # a replay runs on the current stream; a recorded run and a capture
+        # on the capture stream
+        entry = self.replays.entries.get(key)
+        replay = entry is not None and not isinstance(entry,
+                                                      capture.Recorder)
+        with contextlib.nullcontext() if replay \
+                else capture.on_side_stream(self.device):
+            _, out = self.replays(key, ov, body, {"node": seed},
+                                  int(batch_index), self.device)
+        return out

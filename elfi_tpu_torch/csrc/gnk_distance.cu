@@ -106,14 +106,24 @@ __device__ __forceinline__ float sorted_distance(const float (&y)[kRows],
   return static_cast<float>(sqrt(s));
 }
 
-template <int kRows, bool kNoiseIn>
+// The seed of a launch keyed from device memory: the launcher copies it
+// here from the caller's pointer, on the launch's stream, just before the
+// launch (in a CUDA graph, a copy node before each kernel node).  Read
+// from the constant bank, the seed and the round keys made from it are
+// the same for every thread and stay out of the kernel's registers (held
+// in registers, the 50-row instance spilled at 6 blocks an SM, and at 5
+// it took 1.12 of the value path's time).
+__constant__ unsigned long long c_seed;
+
+// kSeedIn: the stream's seed is c_seed.
+template <int kRows, bool kNoiseIn, bool kSeedIn>
 __global__ void __launch_bounds__(kThreads, min_blocks(kRows))
 gnk_distance_kernel(const float* __restrict__ A, const float* __restrict__ B,
                     const float* __restrict__ g, const float* __restrict__ k,
                     const float* __restrict__ obs,
                     const float* __restrict__ noise, float* __restrict__ out,
                     int64_t batch, int n_obs, float c,
-                    const __grid_constant__ PhiloxKey key) {
+                    const __grid_constant__ PhiloxKey key_arg) {
   __shared__ __align__(16) float s_obs[kRows];
   // the main instance's n_obs is a constant, so its guards fold away
   const int n = kRows == kMaxRows ? n_obs : kRows;
@@ -130,6 +140,11 @@ gnk_distance_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int r = 0; r < kRows; ++r)
       y[r] = r < n ? gnk_transform(z[r], a, b, h, kk, c) : INFINITY;
   } else {
+    // c_seed's round keys are made where each round uses them
+    unsigned long long s = 0;
+    if constexpr (kSeedIn) s = c_seed;
+    const uint32_t sa = static_cast<uint32_t>(s);
+    const uint32_t sb = static_cast<uint32_t>(s >> 32);
 #pragma unroll
     for (int q = 0; q < (kRows + 3) / 4; ++q) {
       const int r = 4 * q;
@@ -137,7 +152,9 @@ gnk_distance_kernel(const float* __restrict__ A, const float* __restrict__ B,
       for (int t = 0; t < 4; ++t)
         if (r + t < kRows) y[r + t] = INFINITY;
       if (r < n) {
-        const uint4 w = philox_block(key, i, static_cast<uint32_t>(q));
+        const uint4 w =
+            kSeedIn ? philox_block(sa, sb, i, static_cast<uint32_t>(q))
+                    : philox_block(key_arg, i, static_cast<uint32_t>(q));
         const float2 z0 = box_muller_fast(w.x, w.y);
         y[r] = gnk_transform(z0.x, a, b, h, kk, c);
         if (r + 1 < kRows && r + 1 < n)
@@ -174,25 +191,31 @@ unsigned blocks_for(long long batch) {
   return static_cast<unsigned>((batch + kThreads - 1) / kThreads);
 }
 
-template <bool kNoiseIn>
+template <bool kNoiseIn, bool kSeedIn>
 int launch(const float* A, const float* B, const float* g, const float* k,
            const float* obs, const float* noise, float* out, long long batch,
-           int n_obs, float c, unsigned long long seed, int device,
-           void* stream) {
-  if (batch < 1 || n_obs < 1 || n_obs > kMaxRows)
+           int n_obs, float c, unsigned long long seed,
+           const unsigned long long* seed_in, int device, void* stream) {
+  if (batch < 1 || n_obs < 1 || n_obs > kMaxRows ||
+      (kSeedIn && seed_in == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
   const PhiloxKey key = elfi::philox_key(seed);
+  if constexpr (kSeedIn) {
+    err = cudaMemcpyToSymbolAsync(c_seed, seed_in, sizeof(c_seed), 0,
+                                  cudaMemcpyDeviceToDevice, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (n_obs == kMainRows)
-    gnk_distance_kernel<kMainRows, kNoiseIn><<<blocks_for(batch), kThreads, 0,
-                                               s>>>(
-        A, B, g, k, obs, noise, out, batch, n_obs, c, key);
+    gnk_distance_kernel<kMainRows, kNoiseIn, kSeedIn>
+        <<<blocks_for(batch), kThreads, 0, s>>>(
+            A, B, g, k, obs, noise, out, batch, n_obs, c, key);
   else
-    gnk_distance_kernel<kMaxRows, kNoiseIn><<<blocks_for(batch), kThreads, 0,
-                                              s>>>(
-        A, B, g, k, obs, noise, out, batch, n_obs, c, key);
+    gnk_distance_kernel<kMaxRows, kNoiseIn, kSeedIn>
+        <<<blocks_for(batch), kThreads, 0, s>>>(
+            A, B, g, k, obs, noise, out, batch, n_obs, c, key);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -206,8 +229,20 @@ int elfi_gnk_distance(const float* A, const float* B, const float* g,
                       const float* k, const float* obs, float* out,
                       long long batch, int n_obs, float c,
                       unsigned long long seed, int device, void* stream) {
-  return launch<false>(A, B, g, k, obs, nullptr, out, batch, n_obs, c, seed,
-                       device, stream);
+  return launch<false, false>(A, B, g, k, obs, nullptr, out, batch, n_obs, c,
+                              seed, nullptr, device, stream);
+}
+
+// The same, with the seed read from `seed` in device memory on the stream
+// (copied to c_seed before the kernel): how a CUDA graph that is replayed
+// for many batches keys it.
+int elfi_gnk_distance_seed_in(const float* A, const float* B, const float* g,
+                              const float* k, const float* obs, float* out,
+                              long long batch, int n_obs, float c,
+                              const unsigned long long* seed, int device,
+                              void* stream) {
+  return launch<false, true>(A, B, g, k, obs, nullptr, out, batch, n_obs, c,
+                             0ull, seed, device, stream);
 }
 
 // z read from `noise`, (batch, n_obs) row-major: the same transform, sort
@@ -217,8 +252,8 @@ int elfi_gnk_distance_noise(const float* A, const float* B, const float* g,
                             const float* k, const float* obs,
                             const float* noise, float* out, long long batch,
                             int n_obs, float c, int device, void* stream) {
-  return launch<true>(A, B, g, k, obs, noise, out, batch, n_obs, c, 0ull,
-                      device, stream);
+  return launch<true, false>(A, B, g, k, obs, noise, out, batch, n_obs, c,
+                             0ull, nullptr, device, stream);
 }
 
 // The network of the `rows`-row instance (50 or 64) on `in`, (batch, rows)

@@ -33,7 +33,8 @@
 //   interleave) with the block ends at fixed places in it, so the body has
 //   no branches and the state shifts are register renames.
 //
-// RNG: Philox4x32-10 keyed by the node's 64-bit stream seed, with counter
+// RNG: Philox4x32-10 keyed by the node's 64-bit stream seed (a launch
+// argument, or in a CUDA graph read from device memory: the same keys), with counter
 // (simulation index, draw block), so the result does not depend on the
 // block size or the grid (philox.cuh, shared with the g-and-k kernel).
 // The streams differ from torch.randn's; the kernel agrees with the plain
@@ -166,14 +167,17 @@ __device__ __forceinline__ void eight_values(Ma2Stats& st, const Draw& draw,
   }
 }
 
-template <bool kNoiseIn>
+// kSeedIn: the stream's seed is read from `seed` in device memory (a graph
+// refills it before each replay) and its keys are made per thread.
+template <bool kNoiseIn, bool kSeedIn>
 __global__ void __launch_bounds__(kThreads)
 ma2_distance_kernel(const float* __restrict__ t1,
                     const float* __restrict__ t2,
                     const float* __restrict__ obs,
                     const float* __restrict__ noise,
                     float* __restrict__ out, int64_t batch, int n_obs,
-                    const __grid_constant__ PhiloxKey key) {
+                    const __grid_constant__ PhiloxKey key,
+                    const unsigned long long* __restrict__ seed) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= batch) return;
   const int n_w = n_obs + 2;
@@ -186,6 +190,9 @@ ma2_distance_kernel(const float* __restrict__ t1,
   };
   if constexpr (kNoiseIn) {
     out[i] = run(NoiseDraw{noise + i * n_w, n_w});
+  } else if constexpr (kSeedIn) {
+    const PhiloxKey own = elfi::philox_key(__ldg(seed));
+    out[i] = run(PhiloxDraw{own, i});
   } else {
     out[i] = run(PhiloxDraw{key, i});
   }
@@ -209,18 +216,21 @@ philox_normals_kernel(float* __restrict__ out, int64_t batch, int n,
   }
 }
 
-template <bool kNoiseIn>
+template <bool kNoiseIn, bool kSeedIn>
 int launch(const float* t1, const float* t2, const float* obs,
            const float* noise, float* out, long long batch, int n_obs,
-           unsigned long long seed, int device, void* stream) {
-  if (batch < 1 || n_obs < 3) return static_cast<int>(cudaErrorInvalidValue);
+           unsigned long long seed, const unsigned long long* seed_in,
+           int device, void* stream) {
+  if (batch < 1 || n_obs < 3 || (kSeedIn && seed_in == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (batch + kThreads - 1) / kThreads;
-  ma2_distance_kernel<kNoiseIn>
+  ma2_distance_kernel<kNoiseIn, kSeedIn>
       <<<static_cast<unsigned>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(t1, t2, obs, noise, out, batch,
-                                              n_obs, elfi::philox_key(seed));
+                                              n_obs, elfi::philox_key(seed),
+                                              seed_in);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,8 +242,18 @@ extern "C" {
 int elfi_ma2_distance(const float* t1, const float* t2, const float* obs,
                       float* out, long long batch, int n_obs,
                       unsigned long long seed, int device, void* stream) {
-  return launch<false>(t1, t2, obs, nullptr, out, batch, n_obs, seed, device,
-                       stream);
+  return launch<false, false>(t1, t2, obs, nullptr, out, batch, n_obs, seed,
+                              nullptr, device, stream);
+}
+
+// The same, with the seed read from `seed` in device memory when the kernel
+// runs: how a CUDA graph that is replayed for many batches keys it.
+int elfi_ma2_distance_seed_in(const float* t1, const float* t2,
+                              const float* obs, float* out, long long batch,
+                              int n_obs, const unsigned long long* seed,
+                              int device, void* stream) {
+  return launch<false, true>(t1, t2, obs, nullptr, out, batch, n_obs, 0ull,
+                             seed, device, stream);
 }
 
 // w read from `noise`, (batch, n_obs + 2) row-major: the same filter,
@@ -243,8 +263,8 @@ int elfi_ma2_distance_noise(const float* t1, const float* t2,
                             const float* obs, const float* noise, float* out,
                             long long batch, int n_obs, int device,
                             void* stream) {
-  return launch<true>(t1, t2, obs, noise, out, batch, n_obs, 0ull, device,
-                      stream);
+  return launch<true, false>(t1, t2, obs, noise, out, batch, n_obs, 0ull,
+                             nullptr, device, stream);
 }
 
 // The normals of philox_normals_kernel into `out`, (batch, n) row-major.

@@ -24,12 +24,14 @@ constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 // The ten round keys of a 64-bit seed, made once on the host.  A kernel
 // takes them as a __grid_constant__ parameter, which lives in the constant
 // bank: the round's three-way XOR reads its key from there as an operand,
-// so the key schedule costs no instruction on the card.
+// so the key schedule costs no instruction on the card.  A kernel in a CUDA
+// graph, whose seed changes from replay to replay, reads the seed from
+// device memory instead and makes the same keys in registers.
 struct PhiloxKey {
   uint32_t k[10][2];
 };
 
-inline PhiloxKey philox_key(uint64_t seed) {
+__host__ __device__ inline PhiloxKey philox_key(uint64_t seed) {
   PhiloxKey key;
   uint32_t a = static_cast<uint32_t>(seed);
   uint32_t b = static_cast<uint32_t>(seed >> 32);
@@ -69,6 +71,19 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, const PhiloxKey& key) {
   return c;
 }
 
+// Philox4x32-10 keyed by the halves (a, b) of a 64-bit seed, each round key
+// made where the round uses it (a + r W0, b + r W1): for a kernel that reads
+// its seed from memory, the compiler may recompute a round key rather than
+// hold all twenty in registers.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t a,
+                                              uint32_t b) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r)
+    c = philox_round(c, a + static_cast<uint32_t>(r) * kPhiloxW0,
+                     b + static_cast<uint32_t>(r) * kPhiloxW1);
+  return c;
+}
+
 // The four words of draw block `block` of simulation `sim` under `key`.
 __device__ __forceinline__ uint4 philox_block(const PhiloxKey& key,
                                              int64_t sim, uint32_t block) {
@@ -77,6 +92,16 @@ __device__ __forceinline__ uint4 philox_block(const PhiloxKey& key,
       make_uint4(static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32),
                  block, 0u),
       key);
+}
+
+// The same words under the seed whose halves are (a, b).
+__device__ __forceinline__ uint4 philox_block(uint32_t a, uint32_t b,
+                                             int64_t sim, uint32_t block) {
+  const uint64_t s = static_cast<uint64_t>(sim);
+  return philox4x32_10(
+      make_uint4(static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32),
+                 block, 0u),
+      a, b);
 }
 
 // The float 1.m whose 23 mantissa bits m are the low 23 bits of x: one LOP3,

@@ -20,6 +20,7 @@ Two chains:
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from functools import partial
 
@@ -29,6 +30,7 @@ import torch
 from ...compile.compiler import compile_program
 from ...model.extensions import ModelPrior
 from ...parallel.backends import NativeBackend, ShardedBackend
+from ...utils import capture
 from ...utils.rng import fold_in, generator
 from ..base import ModelBased
 from ..results import BslSample
@@ -43,6 +45,14 @@ __all__ = ["BSL"]
 #: folded into the seed to key the fused chain's proposal and accept
 #: stream (the JAX package's constant)
 _CHAIN_SALT = 0xB51
+#: MH steps in one CUDA graph of the fused chain.  Each chain records its
+#: first block eagerly and captures its second (its graphs are its own),
+#: and runs the steps past the last whole block eagerly, so a smaller
+#: block costs a chain less before it replays.  scripts/torch_capture_ab.py
+#: --phases bsl on an NVIDIA H100 80GB HBM3 at 700.00 W, MA2 at the JAX
+#: bench's point (1000 steps of 500 simulations), best of three: 0.240 /
+#: 0.273 / 0.497 ms a step at 16 / 32 / 64 (1.687 eagerly).
+_CHAIN_BLOCK = 16
 
 
 class BSL(ModelBased):
@@ -289,7 +299,7 @@ class BSL(ModelBased):
         logit = _traceable_logit(self.logit_transform_bound, d, dev)
         thetas, posts, n_acc = self._fused_chain(
             n_samples, prog.traceable(self.batch_size), loglik_t, observed,
-            Lprop, theta0, logit)
+            Lprop, theta0, logit, capturable=prog.capturable)
         # the one copy to the host: the chain, its log-posteriors and the
         # accept count (exact in float32 up to 2**24 steps) in one tensor
         packed = torch.cat([thetas.reshape(-1), posts,
@@ -303,13 +313,22 @@ class BSL(ModelBased):
         self.state["n_batches"] = n_samples
 
     def _fused_chain(self, n_samples, fn, loglik_t, observed, Lprop, theta0,
-                     logit):
+                     logit, capturable=False):
         """Queue the chain: step ``i`` simulates batch index ``i`` of the
         per-batch program ``fn`` at the step's proposal (step 0 at
         ``theta0``).  Returns the device tensors ``thetas`` (n, d),
         ``posts`` (n,) and the 0-d count of accepted steps past the
         burn-in.  Nothing here reads from the device or copies from the
-        host: the host only queues work."""
+        host: the host only queues work.
+
+        On a CUDA device, with a ``capturable`` program, blocks of
+        :data:`_CHAIN_BLOCK` steps are CUDA graphs
+        (:class:`~elfi_tpu_torch.utils.capture.Replays`: the first block
+        runs eagerly and recorded, the second captures, the rest replay),
+        with the chain's generator registered with the graph, so its
+        offsets advance across replays as they do eagerly; step 0 and a
+        shorter last block run eagerly.  Either way the chain is the eager
+        chain, bit for bit."""
         dev = theta0.device
         d = theta0.shape[0]
         B = self.batch_size
@@ -330,26 +349,55 @@ class BSL(ModelBased):
 
         thetas = torch.empty((n_samples, d), dtype=torch.float32, device=dev)
         posts = torch.empty((n_samples,), dtype=torch.float32, device=dev)
-        n_acc = torch.zeros((), dtype=torch.int64, device=dev)
         theta = theta0
         logpost = loglik_of(theta0, 0) + prior_logpdf(theta0[None, :])[0]
         thetas[0] = theta
         posts[0] = logpost
-        for i in range(1, n_samples):
-            z = torch.randn((d,), generator=gen, device=dev)
-            prop = back(to_tilde(theta) + Lprop @ z)
-            post = loglik_of(prop, i) + prior_logpdf(prop[None, :])[0]
-            ratio = post - logpost + jac(prop) - jac(theta)
-            u = torch.rand((), generator=gen, device=dev)
-            accept = (torch.log(u) < torch.clamp(ratio, -700, 700)) \
-                & torch.isfinite(post)
-            theta = torch.where(accept, prop, theta)
-            logpost = torch.where(accept, post, logpost)
-            if i >= burn_in:
-                n_acc += accept
-            thetas[i] = theta
-            posts[i] = logpost
-        return thetas, posts, n_acc
+
+        def block(state, start, length):
+            """Steps ``start .. start + length - 1``; the step index is
+            also a device counter (``state["i"]``), so a graph of the
+            block writes each replay's rows."""
+            theta, logpost = state["theta"], state["logpost"]
+            n_acc, first = state["n_acc"], state["i"]
+            for j in range(length):
+                i = first + j
+                z = torch.randn((d,), generator=gen, device=dev)
+                prop = back(to_tilde(theta) + Lprop @ z)
+                post = loglik_of(prop, start + j) \
+                    + prior_logpdf(prop[None, :])[0]
+                ratio = post - logpost + jac(prop) - jac(theta)
+                u = torch.rand((), generator=gen, device=dev)
+                accept = (torch.log(u) < torch.clamp(ratio, -700, 700)) \
+                    & torch.isfinite(post)
+                theta = torch.where(accept, prop, theta)
+                logpost = torch.where(accept, post, logpost)
+                n_acc = n_acc + (accept & (i >= burn_in))
+                thetas.index_copy_(0, i.reshape(1), theta[None])
+                posts.index_copy_(0, i.reshape(1), logpost.reshape(1))
+            return dict(theta=theta, logpost=logpost, n_acc=n_acc,
+                        i=first + length), None
+
+        state = dict(theta=theta, logpost=logpost,
+                     n_acc=torch.zeros((), dtype=torch.int64, device=dev),
+                     i=torch.ones((), dtype=torch.int64, device=dev))
+        captured = capture.enabled(dev) and capturable
+        replays = capture.Replays()
+        with capture.on_side_stream(dev) if captured \
+                else contextlib.nullcontext():
+            i = 1
+            while i < n_samples:
+                length = min(_CHAIN_BLOCK, n_samples - i)
+                if captured and length == _CHAIN_BLOCK:
+                    state, _ = replays(
+                        "block", state,
+                        lambda st, start: block(st, start, _CHAIN_BLOCK),
+                        {"node": seed}, i, dev, persistent=(gen,))
+                else:
+                    state.update(block(state, i, length)[0])
+                i += length
+        self._chain_replays = replays
+        return thetas, posts, state["n_acc"]
 
 
 def _traceable_logit(bound, d, device):

@@ -20,6 +20,7 @@ across rounds, so every round simulates with fresh noise.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from math import ceil, inf
 
@@ -31,19 +32,25 @@ from ..model.extensions import ModelPrior
 from ..model.model import AdaptiveDistance
 from ..ops import topk
 from ..parallel.backends import NativeBackend, ShardedBackend
-from ..utils import get_sub_seed
-from ..utils.rng import fold_in, generator
+from ..utils import capture, get_sub_seed
+from ..utils.rng import batch_generator, fold_in
 from .base import Sampler, _ProgressBar
 from .results import Sample, SmcSample
-from .utils import (GMDistribution, batch_to_arr2d, weighted_sample_quantile,
-                    weighted_var)
+from .utils import (GMDistribution, PreparedGM, batch_to_arr2d,
+                    weighted_sample_quantile, weighted_var)
 
 __all__ = ["Rejection", "SMC", "AdaptiveDistanceSMC", "AdaptiveThresholdSMC"]
 
 logger = logging.getLogger(__name__)
 
-#: batches queued between progress updates, and between the host reads of
-#: the acceptance count in threshold mode.  Not tuned on this hardware.
+#: batches queued between progress updates and between the host reads of
+#: the acceptance count in threshold mode, and batches a captured chunk
+#: holds.  scripts/torch_capture_ab.py on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W, best of three walls, captured at 16 / 32 / 64 (eager at 16):
+#: MA2 rejection, 2**28 simulations, plain graph at 2**17 0.965 / 0.963 /
+#: 0.966 s (1.097), kernel graph at 2**21 48.3 / 48.6 / 49.1 ms (51.1);
+#: gauss2d SMC at 16384 26.8 / 44.7 / 80.1 ms (49.8), since a threshold
+#: round stops at a chunk's end.  16 stays (the JAX package's is 64).
 _FUSED_CHUNK = 16
 
 #: Merge unroll: the number of consecutive batches (of one device) whose
@@ -78,6 +85,17 @@ _MAX_BATCHES = 100_000
 #: folded into a round's seed to key its proposal streams (the JAX
 #: package's constant)
 _PROPOSAL_SALT = 0x9E3779B9
+#: masked prior-support redraw rounds of an SMC proposal inside a captured
+#: chunk (:meth:`.utils.GMDistribution.rvs_masked`); a batch that needs
+#: more sends its chunk back to the eager loop, and the round's later
+#: chunks run eagerly.  scripts/torch_capture_ab.py on an NVIDIA H100 80GB
+#: HBM3 at 700.00 W: the eager loop's rounds per batch were 0 for all 48
+#: batches of gauss2d SMC (batch 16384) and 2-13 for MA2 SMC (batch 2000,
+#: quantiles 0.5, 0.2, 0.2); best walls over 0, 1, 2, 3, 4 rounds were
+#: 17.3, 21.0, 24.7, 27.9, 31.7 ms (gauss2d) and 176, 252, 238, 271, 312
+#: ms (MA2, every round's first chunk run again at each): each round
+#: costs a whole draw of the batch, so 0.
+_REDRAW_ROUNDS = 0
 
 
 def _fused_unroll(batch_size, shapes):
@@ -97,6 +115,209 @@ def _fused_unroll(batch_size, shapes):
     if bytes_per_sim > _UNROLL_BYTES_CAP:
         return 1
     return int(max(1, min(_UNROLL_MAX, _UNROLL_CAND_CAP // batch_size)))
+
+
+class _ChunkLoop:
+    """The chunks of one fused rejection run (:meth:`Rejection._run_fused`):
+    each chunk queues its batches' programs and the merges of their outputs
+    into the running top-N of each device.
+
+    On one CUDA device, for a capturable program, a chunk is a CUDA graph
+    (the counterpart of the JAX package's ``chunk_fn``): the merge schedule
+    of a chunk (which merges take how many batches, and which merge flat
+    because the buffer has not taken ``n`` rows yet: a host decision) is
+    part of its graph's key, so the first chunks, which merge flat, and the
+    steady state are separate graphs.  Each key's first chunk runs eagerly
+    and recorded, its second captures the graph, later ones replay it; the
+    graphs are kept with the program (``prog.replays``), so a later run of
+    any sampler replays them.  The first chunk allocates the buffers
+    inside its graph.  A remainder chunk shorter than ``_FUSED_CHUNK``, and
+    the very first run's first chunk (which learns the merge unroll from
+    the outputs' shapes), run eagerly.  The threshold and an SMC round's
+    mixture are device tensors kept with the graphs, rewritten each run,
+    so one graph serves any threshold and every round.  SMC proposals
+    draw ``_REDRAW_ROUNDS`` masked prior-support redraw rounds inside the
+    graph (:meth:`.utils.GMDistribution.rvs_masked`); the chunk's flag
+    that a batch needed more is read with its acceptance count, and such
+    a chunk is run again eagerly from the state it started from, which
+    the graph saves, with the eager redraw loop; the run's later chunks
+    run eagerly (this round's mixture sends rows outside the support), and
+    the next run (the next round) tries its graph again.  Every path gives
+    the eager loop's rows, bit for bit."""
+
+    def __init__(self, prog, devices, batch_size, seed, start_index, n,
+                 disc, threshold, overrides_spec):
+        self.devices, self.D, self.B = devices, len(devices), batch_size
+        self.seed, self.start_index, self.n, self.disc = (
+            seed, start_index, n, disc)
+        self.fns = [prog.on(dev).traceable(batch_size) for dev in devices]
+        self.spec = overrides_spec
+        self.captured = (self.D == 1 and capture.enabled(devices[0])
+                         and prog.capturable
+                         and (overrides_spec is None
+                              or hasattr(overrides_spec, "masked")))
+        self.replays = replays = prog.replays
+        #: chunks run again eagerly for a proposal's redraw
+        self.redone = 0
+        #: set by a redone chunk: this run's later chunks run eagerly
+        self.eager_proposals = False
+        self.parts = [None] * self.D
+        self.merged = [0] * self.D
+        self.unroll = replays.memo.get(("unroll", self.fns[0])) \
+            if self.captured else None
+        if self.captured:
+            dev = devices[0]
+            if overrides_spec is not None:
+                # the graphs read the mixture from buffers kept with them
+                self.spec = overrides_spec.on_buffers(replays)
+            shape = threshold.shape if isinstance(threshold,
+                                                  torch.Tensor) else ()
+            thr = replays.buffer(("threshold", tuple(shape)), shape,
+                                 torch.float32, dev)
+            if isinstance(threshold, torch.Tensor):
+                thr.copy_(threshold)
+            else:
+                thr.fill_(threshold)
+            self.thrs = [thr]
+        else:
+            self.thrs = [threshold.to(dev) if isinstance(
+                threshold, torch.Tensor) else threshold for dev in devices]
+
+    def stream(self):
+        """Where the chunks run: the capture stream when they are graphs."""
+        return capture.on_side_stream(self.devices[0]) if self.captured \
+            else contextlib.nullcontext()
+
+    def _plan(self, i0, length):
+        """((device, batches, fresh) of each merge of the chunk at batch
+        ``i0``, in order; the rows each device has merged after it)."""
+        merged, pending, plan = list(self.merged), [0] * self.D, []
+
+        def close(k):
+            plan.append((k, pending[k], merged[k] < self.n))
+            merged[k] += self.B * pending[k]
+            pending[k] = 0
+
+        for i in range(i0, i0 + length):
+            k = i % self.D
+            pending[k] += 1
+            if pending[k] == self.unroll:
+                close(k)
+        for k in range(self.D):
+            if pending[k]:
+                close(k)
+        return tuple(plan), merged
+
+    def _body(self, parts, i0, length, masked):
+        """Queue the chunk at batch ``i0`` from the buffers ``parts``;
+        returns (the new buffers, each device's acceptance counts, each
+        masked proposal's flag that its rows are in the prior's
+        support)."""
+        parts = list(parts)
+        pending = [[] for _ in self.devices]
+        accs = [[] for _ in self.devices]
+        oks = []
+        merges = None
+
+        def merge(k):
+            _, _, fresh = next(merges)
+            outs, pending[k] = pending[k], []
+            cat = outs[0] if len(outs) == 1 else {
+                name: torch.cat([o[name] for o in outs]) for name in outs[0]}
+            parts[k], acc = topk.merge_scan(parts[k], cat, self.thrs[k],
+                                            self.disc, fresh=fresh)
+            accs[k].append(acc)
+
+        for i in range(i0, i0 + length):
+            k = i % self.D
+            dev = self.devices[k]
+            ov = {}
+            if self.spec is not None and masked:
+                ov, ok = self.spec.masked(i, _REDRAW_ROUNDS)
+                oks.append(ok)
+            elif self.spec is not None:
+                ov = self.spec(i)
+            out = self.fns[k](self.seed, i, {name: v.to(dev)
+                                             for name, v in ov.items()})
+            if self.unroll is None:
+                self.unroll = _fused_unroll(self.B, out)
+                if self.captured:
+                    self.replays.memo[("unroll", self.fns[0])] = self.unroll
+            if merges is None:
+                merges = iter(self._plan(i0, length)[0])
+            if self.D > 1:      # the global simulation index of each row
+                out = dict(out, __pos=torch.arange(
+                    i * self.B, (i + 1) * self.B, device=dev))
+            if parts[k] is None:
+                parts[k] = topk.init_buffers(self.n, out, self.disc)
+                if self.D > 1:
+                    parts[k]["__pos"].fill_(-1)
+            pending[k].append(out)
+            if len(pending[k]) == self.unroll:
+                merge(k)
+        for k in range(self.D):     # the remainder: the chunk ends merged
+            if pending[k]:
+                merge(k)
+        return parts, accs, oks
+
+    def chunk(self, start, length, read):
+        """Queue this run's batches ``start .. start + length - 1`` and
+        their merges; with ``read``, return the rows they accepted (a host
+        read), else 0."""
+        i0 = self.start_index + start
+        graph = (self.captured and self.unroll is not None
+                 and length == _FUSED_CHUNK and not self.eager_proposals)
+        if not graph:
+            parts, accs, _ = self._body(self.parts, i0, length, False)
+            self.merged = self._plan(i0, length)[1]
+            self.parts = parts
+            return sum(int(torch.stack(a).sum()) for a in accs if a) \
+                if read else 0
+        plan, merged = self._plan(i0, length)
+        masked = self.spec is not None
+        # the first chunk allocates the buffers inside its graph
+        state = self.parts[0] or {}
+        key = ("chunk", self.fns[0], self.B, self.n, self.disc, plan,
+               tuple(self.thrs[0].shape),
+               (self.spec.graph_key, _REDRAW_ROUNDS) if masked else None,
+               tuple((k, tuple(v.shape), v.dtype) for k, v in state.items()))
+
+        def fn(state, i0):
+            parts, accs, oks = self._body([state or None], i0, length,
+                                          masked)
+            bad = (~torch.stack(oks)).sum() if oks else \
+                torch.zeros((), dtype=torch.int64, device=self.devices[0])
+            return parts[0], torch.stack([torch.stack(accs[0]).sum(), bad])
+
+        bases = {"node": self.seed}
+        if masked:
+            bases["batch"] = self.spec.key
+        new, extra = self.replays(key, state, fn, bases, i0,
+                                  self.devices[0], snapshot=masked)
+        stat, before = extra if masked else (extra, None)
+        self.parts = [new]
+        self.merged = merged
+        if not (read or masked):
+            return 0
+        accepted, bad = stat.tolist()
+        if bad:
+            # a proposal needed more redraw rounds than the graph holds:
+            # the chunk again, eagerly, from the state it started from
+            parts, accs, _ = self._body([dict(before) or None], i0, length,
+                                        False)
+            self.parts = parts
+            self.redone += 1
+            self.eager_proposals = True
+            accepted = int(torch.stack(accs[0]).sum())
+        return accepted if read else 0
+
+    def final_parts(self):
+        """The buffers of every device; a graph's static buffers are
+        copied, since its next replay overwrites them."""
+        parts = [p for p in self.parts if p is not None]
+        if self.captured:
+            parts = [{k: v.clone() for k, v in p.items()} for p in parts]
+        return parts
 
 
 def _float32_threshold(t, device):
@@ -263,9 +484,9 @@ class Rejection(Sampler):
     def _run_fused(self, prog, threshold, seed=None, start_index=0,
                    overrides_spec=None):
         """Queue batches ``start_index, start_index + 1, ...`` and their
-        merges on the device.  Without a threshold the host never waits for
-        the device here; with one it reads the acceptance count once per
-        ``_FUSED_CHUNK`` batches.
+        merges on the device, ``_FUSED_CHUNK`` batches a chunk.  Without a
+        threshold the host never waits for the device here; with one it
+        reads the acceptance count once a chunk.
 
         ``overrides_spec`` (fused SMC rounds) is a per-batch builder
         ``fn(batch_index) -> {node: tensor}`` whose values replace those
@@ -277,97 +498,60 @@ class Rejection(Sampler):
         which takes the culled merge once that device's buffer has taken
         ``n`` rows.
 
+        On one CUDA device a capturable program's chunks are CUDA graphs
+        (:class:`_ChunkLoop`), kept with the program (``prog.replays``) for
+        every sampler that runs it, bit for bit the eager chunks.
+
         Under a :class:`ShardedBackend` batch ``i`` runs whole on device
         ``i % n_devices`` (its overrides copied there), each device merges
         its own batches into its own top-N, and the last merge
         (:func:`~elfi_tpu_torch.ops.topk.merge_parts`) keeps the rows and
         the order of the one-device run: every batch is the native batch,
-        and ties go to the earlier simulation.
+        and ties go to the earlier simulation.  The device list runs
+        eagerly.
         """
         if seed is None:
             seed = self.seed
         devices = getattr(self.client, "mesh", None) or [self.device]
-        D, B = len(devices), self.batch_size
-        fns = [prog.on(dev).traceable(B) for dev in devices]
-        disc = self.discrepancy_name
+        loop = _ChunkLoop(prog, devices, self.batch_size, seed, start_index,
+                          self.objective["n_samples"],
+                          self.discrepancy_name, self._merge_threshold(),
+                          overrides_spec)
         n = self.objective["n_samples"]
-        thr = self._merge_threshold()
-        thrs = [thr.to(dev) if isinstance(thr, torch.Tensor) else thr
-                for dev in devices]
-        parts = [None] * D
-        # per device: outputs awaiting their merge, and rows merged so far
-        # (merge_scan's ``fresh``)
-        pending = [[] for _ in devices]
-        merged = [0] * D
-        unroll = None
-
-        def merge(k):
-            outs, pending[k] = pending[k], []
-            cat = outs[0] if len(outs) == 1 else {
-                name: torch.cat([o[name] for o in outs]) for name in outs[0]}
-            parts[k], acc = topk.merge_scan(parts[k], cat, thrs[k], disc,
-                                            fresh=merged[k] < n)
-            merged[k] += cat[disc].shape[0]
-            return acc
-
-        def run(start, length):
-            nonlocal unroll
-            accs = [[] for _ in devices]
-            for i in range(start_index + start, start_index + start + length):
-                k = i % D
-                dev = devices[k]
-                ov = overrides_spec(i) if overrides_spec else {}
-                out = fns[k](seed, i, {name: v.to(dev)
-                                       for name, v in ov.items()})
-                if unroll is None:
-                    unroll = _fused_unroll(B, out)
-                if D > 1:      # the global simulation index of each row
-                    out = dict(out, __pos=torch.arange(
-                        i * B, (i + 1) * B, device=dev))
-                if parts[k] is None:
-                    parts[k] = topk.init_buffers(n, out, disc)
-                    if D > 1:
-                        parts[k]["__pos"].fill_(-1)
-                pending[k].append(out)
-                if len(pending[k]) == unroll:
-                    accs[k].append(merge(k))
-            for k in range(D):      # the remainder: the chunk ends merged
-                if pending[k]:
-                    accs[k].append(merge(k))
-            return accs
-
         pb = _ProgressBar() if self.bar else None
-        if threshold is None:
-            n_batches = self.objective["n_batches"]
-            done = 0
-            while done < n_batches:
-                length = min(_FUSED_CHUNK, n_batches - done)
-                run(done, length)
-                done += length
-                if pb:
-                    pb.update(done, n_batches)
-            self.state["n_accepted"] = done * self.batch_size
-        else:
-            done, accepted = 0, 0
-            while accepted < n and done < _MAX_BATCHES:
-                accs = run(done, _FUSED_CHUNK)
-                done += _FUSED_CHUNK
-                accepted += sum(int(torch.stack(a).sum()) for a in accs if a)
-                if pb:
-                    pb.update(min(accepted, n), n)
-            self.state["n_accepted"] = accepted
-            if accepted < n:
-                logger.warning(
-                    "Threshold %s unattainable within %d batches: only %d of "
-                    "%d requested samples were accepted; the remaining rows "
-                    "of the returned sample are +inf-discrepancy padding.",
-                    threshold, _MAX_BATCHES, accepted, n)
+        with loop.stream():
+            if threshold is None:
+                n_batches = self.objective["n_batches"]
+                done = 0
+                while done < n_batches:
+                    length = min(_FUSED_CHUNK, n_batches - done)
+                    loop.chunk(done, length, read=False)
+                    done += length
+                    if pb:
+                        pb.update(done, n_batches)
+                self.state["n_accepted"] = done * self.batch_size
+            else:
+                done, accepted = 0, 0
+                while accepted < n and done < _MAX_BATCHES:
+                    accepted += loop.chunk(done, _FUSED_CHUNK, read=True)
+                    done += _FUSED_CHUNK
+                    if pb:
+                        pb.update(min(accepted, n), n)
+                self.state["n_accepted"] = accepted
+                if accepted < n:
+                    logger.warning(
+                        "Threshold %s unattainable within %d batches: only "
+                        "%d of %d requested samples were accepted; the "
+                        "remaining rows of the returned sample are "
+                        "+inf-discrepancy padding.",
+                        threshold, _MAX_BATCHES, accepted, n)
+            parts = loop.final_parts()
         if pb:
             pb.finish()
         self.state["n_batches"] = done
         self.state["n_sim"] = done * self.batch_size
-        self.state["samples"] = topk.merge_parts(
-            [p for p in parts if p is not None], n, self.device)
+        self.state["redone_chunks"] = loop.redone
+        self.state["samples"] = topk.merge_parts(parts, n, self.device)
         self.objective["n_batches"] = done
 
     def plot_state(self, **options):
@@ -406,30 +590,64 @@ class _RoundSchedule:
                 None if quantiles is None else quantiles[i])
 
 
-def _gm_overrides_fn(parameter_names, batch_size, prior_logpdf, proposal,
-                     round_seed):
-    """Per-batch proposal builder of an SMC round >= 1: ``fn(batch_index)
-    -> {parameter: (batch_size,) tensor}``.
+class _GMProposals:
+    """Per-batch proposal builder of an SMC round >= 1 (the JAX package's
+    ``_gm_overrides_fn``): ``fn(batch_index) -> {parameter: (batch_size,)
+    tensor}``.
 
-    ``proposal`` is the round's :class:`~.utils.PreparedGM`.
-    Batch ``i`` draws, prior-support redraws included, from a generator on
-    the mixture's device seeded with ``fold_in(fold_in(round_seed,
-    0x9E3779B9), i)``, computed on the host.  The draws depend on nothing
-    else, so the batch-at-a-time path (:meth:`SMC.prepare_new_batch`) and
-    the fused path, which both call such a builder, propose the same
-    tensors for a batch.
-    """
-    pnames = tuple(parameter_names)
-    key = fold_in(round_seed, _PROPOSAL_SALT)
-    device = proposal.means.device
+    ``proposal`` is the round's :class:`~.utils.PreparedGM`.  Batch ``i``
+    draws, prior-support redraws included, from a generator on the
+    mixture's device seeded with ``fold_in(fold_in(round_seed,
+    0x9E3779B9), i)`` (:func:`~elfi_tpu_torch.utils.rng.batch_generator`),
+    computed on the host.  The draws depend on nothing else, so the
+    batch-at-a-time path (:meth:`SMC.prepare_new_batch`) and the fused
+    path, which both call such a builder, propose the same tensors for a
+    batch.  :meth:`masked` is the draw of a captured chunk: the same
+    tensors whenever the eager redraw loop stops within ``rounds``."""
 
-    def fn(batch_index):
-        params = GMDistribution.rvs(
-            proposal, size=batch_size, prior_logpdf=prior_logpdf,
-            generator=generator(fold_in(key, batch_index), device))
-        return {p: params[:, j] for j, p in enumerate(pnames)}
+    def __init__(self, parameter_names, batch_size, prior_logpdf, proposal,
+                 round_seed, key=None):
+        self.pnames = tuple(parameter_names)
+        self.batch_size = batch_size
+        self.prior_logpdf = prior_logpdf
+        self.proposal = proposal
+        self.key = fold_in(round_seed, _PROPOSAL_SALT) if key is None \
+            else key
+        self.device = proposal.means.device
+        #: what a graph of these draws reads: the mixture's tensors
+        self.graph_key = (batch_size, self.pnames) + tuple(
+            (t.data_ptr(), tuple(t.shape)) for t in proposal)
 
-    return fn
+    def on_buffers(self, replays):
+        """These proposals drawn from the mixture copied into buffers kept
+        with ``replays`` (a captured chunk reads those, whatever round or
+        sampler replays it)."""
+        kept = PreparedGM(*(
+            replays.buffer(("mixture", i, tuple(t.shape), t.dtype),
+                           t.shape, t.dtype, t.device)
+            for i, t in enumerate(self.proposal)))
+        for k, t in zip(kept, self.proposal):
+            k.copy_(t)
+        return _GMProposals(self.pnames, self.batch_size, self.prior_logpdf,
+                            kept, None, key=self.key)
+
+    def _columns(self, params):
+        return {p: params[:, j] for j, p in enumerate(self.pnames)}
+
+    def __call__(self, batch_index):
+        return self._columns(GMDistribution.rvs(
+            self.proposal, size=self.batch_size,
+            prior_logpdf=self.prior_logpdf,
+            generator=batch_generator(self.key, batch_index, self.device)))
+
+    def masked(self, batch_index, rounds):
+        """(the proposals, a 0-d flag that every row is in the prior's
+        support after ``rounds`` masked redraw rounds), with no host
+        read."""
+        params, ok = GMDistribution.rvs_masked(
+            self.proposal, self.batch_size, self.prior_logpdf,
+            batch_generator(self.key, batch_index, self.device), rounds)
+        return self._columns(params), ok
 
 
 class SMC(Sampler):
@@ -522,6 +740,8 @@ class SMC(Sampler):
                            seed=self.seed, start_index=start,
                            overrides_spec=self._propose if rnd else None)
             start += rej.state["n_batches"]
+            self.state["redone_chunks"] = (self.state.get("redone_chunks", 0)
+                                           + rej.state["redone_chunks"])
             self.state["n_sim"] += rej.state["n_sim"]
             self.state["n_batches"] += rej.state["n_batches"]
             if pb:
@@ -610,7 +830,7 @@ class SMC(Sampler):
         self._round_seed = seed
         self._proposal = None if r == 0 else GMDistribution.prepare(
             *self._gm_params, device=self.device)
-        self._propose = None if r == 0 else _gm_overrides_fn(
+        self._propose = None if r == 0 else _GMProposals(
             self.parameter_names, self.batch_size, self._prior_logpdf,
             self._proposal, seed)
         self._rejection = Rejection(

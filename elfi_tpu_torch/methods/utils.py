@@ -134,10 +134,11 @@ class GMDistribution:
     tensors in float32.
 
     ``means``: (m, d); ``cov``: (d, d) shared; ``weights``: (m,).  The
-    port does not trace, so one :meth:`rvs` serves both the fused and the
-    batch-at-a-time SMC rounds (the JAX package has ``rvs`` and
-    ``rvs_traced``).  :meth:`prepare` puts a mixture on the device once, so
-    a round's draws copy nothing from the host and factor nothing again.
+    port's :meth:`rvs` serves the eager fused and the batch-at-a-time SMC
+    rounds; a captured chunk draws through :meth:`rvs_masked` (the JAX
+    package has ``rvs`` and ``rvs_traced``).  :meth:`prepare` puts a
+    mixture on the device once, so a round's draws copy nothing from the
+    host and factor nothing again.
     """
 
     @staticmethod
@@ -197,6 +198,29 @@ class GMDistribution:
                               cls._draw(prepared, size, generator))
         raise RuntimeError(
             "Could not draw proposal points inside the prior support")
+
+    @classmethod
+    def rvs_masked(cls, prepared, size, prior_logpdf, generator, rounds):
+        """:meth:`rvs` with a fixed number of redraw rounds and no host
+        read, the counterpart of the JAX package's ``rvs_traced``: the first
+        draw, then ``rounds`` draws of which each replaces the rows still
+        outside the prior's support.  Returns (the draws, a 0-d flag that
+        every row is inside).  Each round draws from the generator's next
+        offsets, so the rounds the eager loop takes draw what it draws, and
+        a round after every row is inside changes nothing: where the flag
+        is set the draws are :meth:`rvs`'s, bit for bit."""
+        out = cls._draw(prepared, size, generator)
+
+        def inside(o):
+            return torch.isfinite(prior_logpdf(o)) \
+                & torch.isfinite(o).all(dim=1)
+
+        ok = inside(out)
+        for _ in range(rounds):
+            out = torch.where(ok[:, None], out,
+                              cls._draw(prepared, size, generator))
+            ok = inside(out)
+        return out, ok.all()
 
     @classmethod
     def logpdf(cls, x, means, cov=1, weights=None):

@@ -102,6 +102,13 @@ def euclidean_multidim(*simulated, observed):
     return torch.sqrt(d2)
 
 
+#: the ops above draw only through their generator, never read the device
+#: back and copy nothing from the host in a call: the model's programs may
+#: be captured as CUDA graphs (``CompiledProgram.jitted``)
+for _op in (gauss, _GaussNdMean, ss_mean, ss_var, euclidean_multidim):
+    _op.capturable = True
+
+
 def observed_data(n_obs=50, true_params=None, seed_obs=None, nd_mean=False,
                   cov_matrix=None):
     """The JAX package's observed sample for these settings; only the

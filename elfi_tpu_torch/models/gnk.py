@@ -112,6 +112,13 @@ def ss_octile_sq(y):
     return torch.cat([o, o * o], dim=1)
 
 
+#: the ops above draw only through their generator, never read the device
+#: back and copy nothing from the host in a call: the model's programs may
+#: be captured as CUDA graphs (``CompiledProgram.jitted``)
+for _op in (GNK, ss_order, euclidean_multiss):
+    _op.capturable = True
+
+
 def observed_data(n_obs=50, true_params=None, seed_obs=None):
     """The JAX package's observed g-and-k sample (n_obs, 1) for
     ``seed_obs`` (None means 0, as there); only the committed settings are

@@ -24,8 +24,15 @@ __all__ = ["get_model"]
 
 
 class _KernelGnkDistance:
-    """Stochastic op: (A, B, g, k) -> distances via the kernel.  The
-    observed sample is sorted once and copied to each device once."""
+    """Stochastic op: (A, B, g, k) -> distances via the kernel, keyed by
+    the node's stream (:func:`~elfi_tpu_torch.utils.rng.stream_key` of its
+    generator: in a CUDA graph, read from device memory).  The observed
+    sample is sorted once and copied to each device once."""
+
+    #: its programs may be captured as CUDA graphs
+    #: (``CompiledProgram.jitted``): it draws only through its generator's
+    #: key and reads nothing back
+    capturable = True
 
     def __init__(self, observed, n_obs):
         self.obs = np.sort(np.asarray(observed, np.float32).ravel())

@@ -86,6 +86,13 @@ class CustomPrior2(Distribution):
                 * 1.0 / torch.where(scales > 0, scales, 1))
 
 
+#: the ops above draw only through their generator, never read the device
+#: back and copy nothing from the host in a call: the model's programs may
+#: be captured as CUDA graphs (``CompiledProgram.jitted``)
+for _op in (MA2, autocov, CustomPrior1, CustomPrior2):
+    _op.capturable = True
+
+
 def observed_data(n_obs=100, true_params=None, seed_obs=None):
     """The JAX package's observed MA2 series for ``seed_obs`` (None means
     0, as there); only the committed settings are available."""

@@ -22,8 +22,15 @@ __all__ = ["get_model"]
 
 
 class _KernelMA2Distance:
-    """Stochastic op: (t1, t2) -> distances via the kernel.  The observed
+    """Stochastic op: (t1, t2) -> distances via the kernel, keyed by the
+    node's stream (:func:`~elfi_tpu_torch.utils.rng.stream_key` of its
+    generator: in a CUDA graph, read from device memory).  The observed
     autocovariances are copied to each device once."""
+
+    #: its programs may be captured as CUDA graphs
+    #: (``CompiledProgram.jitted``): it draws only through its generator's
+    #: key and reads nothing back
+    capturable = True
 
     def __init__(self, observed_autocovs, n_obs):
         self.obs = np.asarray(observed_autocovs, np.float32)

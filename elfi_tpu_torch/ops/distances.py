@@ -174,6 +174,11 @@ class DistanceOp:
     mahalanobis.
     """
 
+    #: its programs may be captured as CUDA graphs
+    #: (:meth:`~elfi_tpu_torch.compile.compiler.CompiledProgram.jitted`):
+    #: tensor arithmetic only, with its parameters on the device once
+    capturable = True
+
     def __init__(self, metric, p=None, w=None, V=None, VI=None):
         if metric in ("minkowski", "wminkowski"):
             if p is None:
@@ -197,17 +202,36 @@ class DistanceOp:
         self.metric = metric
         self.p = p
         self.w, self.V, self.VI = _float32(w), _float32(V), _float32(VI)
+        self._on = {}
+
+    def __getstate__(self):
+        # the per-device copies are made again on first use after loading
+        return {**self.__dict__, "_on": {}}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.__dict__.setdefault("_on", {})
+
+    def _param(self, name, device):
+        """``w``, ``V`` or ``VI`` on ``device``, copied there once (a copy
+        from the host in every call would wait for the device, and could
+        not be captured in a CUDA graph)."""
+        key = (name, device)
+        if key not in self._on:
+            p = getattr(self, name)
+            self._on[key] = None if p is None else p.to(device)
+        return self._on[key]
 
     def __call__(self, *summaries, observed):
         u = stack_summaries(summaries)
         v = stack_summaries(observed)
-        w = None if self.w is None else self.w.to(u.device)
+        w = self._param("w", u.device)
         if self.metric in ("minkowski", "wminkowski"):
             return _minkowski(u, v, w, float(self.p))
         if self.metric == "seuclidean":
-            return _seuclidean(u, v, self.V.to(u.device))
+            return _seuclidean(u, v, self._param("V", u.device))
         if self.metric == "mahalanobis":
-            return _mahalanobis(u, v, self.VI.to(u.device))
+            return _mahalanobis(u, v, self._param("VI", u.device))
         return METRICS[self.metric](u, v, w)
 
 
@@ -235,7 +259,9 @@ class AdaptiveDistanceOp:
     ``elfi_model.py:1135-1151``.
 
     ``holder['w']`` is a host-side list of float64 arrays; each call uses
-    them as float32 tensors on the summaries' device."""
+    them as float32 tensors on the summaries' device, copied from the
+    host, so it is not marked ``capturable`` and its programs are not
+    captured as CUDA graphs."""
 
     def __init__(self, holder):
         self.holder = holder

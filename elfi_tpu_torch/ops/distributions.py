@@ -87,6 +87,12 @@ class Distribution:
     """
 
     name = None
+    #: whether ``rvs`` may be captured in a CUDA graph
+    #: (:meth:`~elfi_tpu_torch.compile.compiler.CompiledProgram.jitted`):
+    #: it draws only through ``generator`` and neither reads the device
+    #: back nor copies from the host.  Opt-in: a program with a node that
+    #: is not marked runs eagerly.
+    capturable = False
 
     @classmethod
     def rvs(cls, *params, size=1, generator=None):
@@ -112,6 +118,7 @@ class Distribution:
 class uniform(Distribution):
     """Uniform on ``[loc, loc + scale]`` (scipy convention)."""
     name = "uniform"
+    capturable = True
 
     @classmethod
     def rvs(cls, loc=0.0, scale=1.0, size=1, generator=None):
@@ -147,6 +154,7 @@ class uniform(Distribution):
 
 class norm(Distribution):
     name = "norm"
+    capturable = True
 
     @classmethod
     def rvs(cls, loc=0.0, scale=1.0, size=1, generator=None):
@@ -250,6 +258,7 @@ def _standard_gamma(a, shape, generator):
 class truncnorm(Distribution):
     """Truncated normal; ``a``/``b`` are standardized bounds (scipy)."""
     name = "truncnorm"
+    capturable = True
 
     @staticmethod
     def _cdf_bounds(a, b):

@@ -4,7 +4,9 @@ the CUDA kernel ``csrc/gnk_distance.cu`` and its plain PyTorch version.
 Counterpart of :func:`elfi_tpu.ops.pallas_kernels.gnk_distance`.  The
 wrapper launches the kernel for CUDA tensors and raises if it cannot; it
 runs the plain version only for CPU tensors.  ``gnk_distance.launches``
-counts the kernel launches, so a run can show it went through the kernel.
+counts the kernel launches, so a run can show it went through the kernel
+(``captured`` and ``graph_launches`` count those recorded into CUDA graphs
+and launched by their replays: :mod:`elfi_tpu_torch.utils.capture`).
 The kernel has no backward, so ``gnk_distance`` gives no gradient on either
 device: on the CPU its plain version runs without autograd.
 """
@@ -16,8 +18,11 @@ import functools
 
 import torch
 
+from ...utils import capture
+from ...utils.rng import stream_key
 from . import _build, sort_network
 from ._blocked import blocked_sum
+from .ma2 import check_key
 
 __all__ = ["gnk_distance", "gnk_distance_noise", "gnk_distance_reference",
            "gnk_sort_rows", "gnk_transform", "MAX_N_OBS", "NETWORK_ROWS"]
@@ -40,6 +45,10 @@ def _lib():
         _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, _P]
     lib.elfi_gnk_distance.restype = ctypes.c_int
+    lib.elfi_gnk_distance_seed_in.argtypes = [
+        _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_float, _P, ctypes.c_int, _P]
+    lib.elfi_gnk_distance_seed_in.restype = ctypes.c_int
     lib.elfi_gnk_distance_noise.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, _P]
@@ -111,14 +120,15 @@ def gnk_distance_reference(A, B, g, k, observed_sorted, n_obs=50, c=0.8,
 
 
 def gnk_distance(A, B, g, k, observed_sorted, n_obs=50, c=0.8, batch_size=1,
-                 generator=None):
+                 generator=None, key=None):
     """Fused g-and-k simulate+sort+distance; returns (batch,) float32.
 
     ``A``, ``B``, ``g``, ``k``: (batch_size,) float32; ``observed_sorted``:
     (n_obs,) float32 in ascending order (the caller sorts it once); all
     contiguous on one device, 1 <= n_obs <= 64.  On CUDA the kernel's
-    Philox stream is keyed by ``generator.initial_seed()``; on the CPU the
-    plain version draws from ``generator``.
+    Philox stream is keyed by ``key`` (as :func:`.ma2.ma2_distance`'s, by
+    default :func:`~elfi_tpu_torch.utils.rng.stream_key` of
+    ``generator``); on the CPU the plain version draws from ``generator``.
     """
     params = (A, B, g, k)
     device = _check(params, observed_sorted, n_obs, batch_size)
@@ -127,22 +137,32 @@ def gnk_distance(A, B, g, k, observed_sorted, n_obs=50, c=0.8, batch_size=1,
         with torch.no_grad():
             return gnk_distance_reference(*params, observed_sorted, n_obs, c,
                                           batch_size, generator=generator)
-    if generator is None:
-        raise ValueError("on CUDA gnk_distance needs a generator: its "
-                         "initial_seed() keys the kernel's Philox stream")
+    if key is None:
+        if generator is None:
+            raise ValueError("on CUDA gnk_distance needs a generator or a "
+                             "key: it keys the kernel's Philox stream")
+        key = stream_key(generator)
+    key = check_key(key, device)
     lib = _lib()
     out = torch.empty(batch_size, dtype=torch.float32, device=device)
-    rc = lib.elfi_gnk_distance(
-        *(p.data_ptr() for p in params), observed_sorted.data_ptr(),
-        out.data_ptr(), batch_size, n_obs, float(c),
-        generator.initial_seed(), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
-    _build.raise_on(rc, lib, "elfi_gnk_distance")
-    gnk_distance.launches += 1
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if isinstance(key, torch.Tensor):
+        rc = lib.elfi_gnk_distance_seed_in(
+            *(p.data_ptr() for p in params), observed_sorted.data_ptr(),
+            out.data_ptr(), batch_size, n_obs, float(c), key.data_ptr(),
+            device.index, stream)
+        _build.raise_on(rc, lib, "elfi_gnk_distance_seed_in")
+    else:
+        rc = lib.elfi_gnk_distance(
+            *(p.data_ptr() for p in params), observed_sorted.data_ptr(),
+            out.data_ptr(), batch_size, n_obs, float(c), key, device.index,
+            stream)
+        _build.raise_on(rc, lib, "elfi_gnk_distance")
+    capture.count(gnk_distance)
     return out
 
 
-gnk_distance.launches = 0
+capture.counted(gnk_distance)
 
 
 def gnk_distance_noise(A, B, g, k, observed_sorted, z, c=0.8):

@@ -4,7 +4,9 @@ kernel ``csrc/ma2_distance.cu`` and its plain PyTorch version.
 Counterpart of :func:`elfi_tpu.ops.pallas_kernels.ma2_distance`.  The
 wrapper launches the kernel for CUDA tensors and raises if it cannot; it
 runs the plain version only for CPU tensors.  ``ma2_distance.launches``
-counts the kernel launches, so a run can show it went through the kernel.
+counts the kernel launches, so a run can show it went through the kernel
+(``captured`` and ``graph_launches`` count those recorded into CUDA graphs
+and launched by their replays: :mod:`elfi_tpu_torch.utils.capture`).
 The kernel has no backward, so ``ma2_distance`` gives no gradient on either
 device: on the CPU its plain version runs without autograd.
 """
@@ -16,11 +18,13 @@ import functools
 
 import torch
 
+from ...utils import capture
+from ...utils.rng import stream_key
 from . import _build
 from ._blocked import blocked_sum
 
 __all__ = ["ma2_distance", "ma2_distance_noise", "ma2_distance_reference",
-           "philox_normals"]
+           "philox_normals", "check_key"]
 
 _LIB = "ma2_distance"
 _SOURCES = ("ma2_distance.cu",)
@@ -35,6 +39,10 @@ def _lib():
         _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_ulonglong, ctypes.c_int, _P]
     lib.elfi_ma2_distance.restype = ctypes.c_int
+    lib.elfi_ma2_distance_seed_in.argtypes = [
+        _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int,
+        _P]
+    lib.elfi_ma2_distance_seed_in.restype = ctypes.c_int
     lib.elfi_ma2_distance_noise.argtypes = [
         _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, _P]
@@ -95,15 +103,34 @@ def ma2_distance_reference(t1, t2, obs, n_obs, batch_size, generator=None,
     return torch.sqrt(d1 * d1 + d2 * d2).float()
 
 
+def check_key(key, device):
+    """A kernel's stream key: an int (a launch argument) or a 1-element
+    int64 tensor on ``device`` that the kernel reads when it runs."""
+    if isinstance(key, torch.Tensor):
+        if (key.dtype != torch.int64 or key.numel() != 1
+                or key.device != device):
+            raise ValueError(f"a key tensor must be one int64 on {device}, "
+                             f"got {key.dtype} {tuple(key.shape)} on "
+                             f"{key.device}")
+        return key
+    if isinstance(key, int) and 0 <= key < 2**64:
+        return key
+    raise ValueError(f"a key must be a 64-bit unsigned int or an int64 "
+                     f"tensor, got {key!r}")
+
+
 def ma2_distance(t1, t2, observed_autocovs, n_obs=100, batch_size=1,
-                 generator=None):
+                 generator=None, key=None):
     """Fused MA2 simulate+summarise+distance; returns (batch,) float32.
 
     ``t1``, ``t2``: (batch_size,) float32; ``observed_autocovs``: (2,)
     float32 observed (lag-1, lag-2) autocovariances; all contiguous on one
-    device.  On CUDA the kernel's Philox stream is keyed by
-    ``generator.initial_seed()``; on the CPU the plain version draws from
-    ``generator``.
+    device.  On CUDA the kernel's Philox stream is keyed by ``key``, by
+    default :func:`~elfi_tpu_torch.utils.rng.stream_key` of ``generator``:
+    an int, or a 1-element int64 tensor on the device that the kernel reads
+    when it runs (in a CUDA graph, refilled before each replay); the two
+    give the same result for the same seed.  On the CPU the plain version
+    draws from ``generator``.
     """
     device = _check(t1, t2, observed_autocovs, n_obs, batch_size)
     if device.type == "cpu":
@@ -111,21 +138,31 @@ def ma2_distance(t1, t2, observed_autocovs, n_obs=100, batch_size=1,
         with torch.no_grad():
             return ma2_distance_reference(t1, t2, observed_autocovs, n_obs,
                                           batch_size, generator=generator)
-    if generator is None:
-        raise ValueError("on CUDA ma2_distance needs a generator: its "
-                         "initial_seed() keys the kernel's Philox stream")
+    if key is None:
+        if generator is None:
+            raise ValueError("on CUDA ma2_distance needs a generator or a "
+                             "key: it keys the kernel's Philox stream")
+        key = stream_key(generator)
+    key = check_key(key, device)
     lib = _lib()
     out = torch.empty(batch_size, dtype=torch.float32, device=device)
-    rc = lib.elfi_ma2_distance(
-        t1.data_ptr(), t2.data_ptr(), observed_autocovs.data_ptr(),
-        out.data_ptr(), batch_size, n_obs, generator.initial_seed(),
-        device.index, torch.cuda.current_stream(device).cuda_stream)
-    _build.raise_on(rc, lib, "elfi_ma2_distance")
-    ma2_distance.launches += 1
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if isinstance(key, torch.Tensor):
+        rc = lib.elfi_ma2_distance_seed_in(
+            t1.data_ptr(), t2.data_ptr(), observed_autocovs.data_ptr(),
+            out.data_ptr(), batch_size, n_obs, key.data_ptr(), device.index,
+            stream)
+        _build.raise_on(rc, lib, "elfi_ma2_distance_seed_in")
+    else:
+        rc = lib.elfi_ma2_distance(
+            t1.data_ptr(), t2.data_ptr(), observed_autocovs.data_ptr(),
+            out.data_ptr(), batch_size, n_obs, key, device.index, stream)
+        _build.raise_on(rc, lib, "elfi_ma2_distance")
+    capture.count(ma2_distance)
     return out
 
 
-ma2_distance.launches = 0
+capture.counted(ma2_distance)
 
 
 def ma2_distance_noise(t1, t2, observed_autocovs, noise):

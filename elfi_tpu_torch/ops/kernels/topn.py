@@ -6,7 +6,10 @@ package, not Pallas).  :func:`topn_cull` launches the kernel for CUDA
 tensors and raises if it cannot; it runs the plain version only for CPU
 tensors.  ``topn_cull.launches`` counts the kernel's host calls (one a
 merge, each launching a scan and a merge kernel), so a run can show it
-went through the kernel.
+went through the kernel; ``captured`` and ``graph_launches`` count the
+calls recorded into CUDA graphs and launched by their replays
+(:mod:`elfi_tpu_torch.utils.capture`).  A plan whose call a graph captured
+lives as long as that graph.
 
 Both return ``(out, idx, n_accepted)``: the merged buffers (``"__key"``
 and every column of the batch), the index map (entry i is buffer row
@@ -33,6 +36,7 @@ import numbers
 
 import torch
 
+from ...utils import capture
 from .. import topk
 from . import _build
 
@@ -321,7 +325,9 @@ class _Plan:
             # the scratch's counters may be left non-zero
             _plans.pop(self.key, None)
             _build.raise_on(rc, lib, "elfi_topn_cull")
-        topn_cull.launches += 1
+        capture.count(topn_cull)
+        # a graph that captured this call keeps the plan's scratch
+        capture.hold(self)
         if n_acc is None:
             n_acc = idx_acc[self.n]
         out = {"__key": parts[-1]}
@@ -367,4 +373,4 @@ def topn_cull(buffers, batch, threshold, discrepancy_name, small_k=1024):
                  _widths(small_k))
 
 
-topn_cull.launches = 0
+capture.counted(topn_cull)

@@ -1,0 +1,359 @@
+"""CUDA graphs of the port's programs and fused loops: the counterpart of
+the JAX package's ``jax.jit`` of a per-batch program
+(``CompiledProgram.jitted``) and of the fused ``lax.scan`` loops that embed
+it.
+
+A function that draws from per-batch streams (:mod:`.rng`) is captured in
+three steps:
+
+1. it runs once eagerly under a :class:`Recorder`, which hands out freshly
+   seeded generators, as an eager run does, and notes every request:
+   (family, batch index relative to the function's first batch, node);
+   that run is also the warm-up capture asks for (libraries set up their
+   handles and workspaces on the capture stream outside the graph);
+2. :class:`Graph` gives every recorded stream one persistent CUDA generator
+   registered with the graph and captures the function again, checking
+   that it asks for the same streams in the same order;
+3. before each replay the host seeds each stream's generator with that
+   stream's seed for the replay's batches (host arithmetic only): torch's
+   replay prologue writes each registered generator's seed and offset into
+   device memory, so a replay draws what freshly seeded generators draw
+   eagerly.  A kernel keyed by a stream reads the seed from a small device
+   tensor that one copy from a pinned, double-buffered host buffer
+   refills before the replay.
+
+So a replay equals the eager run of the same batches bit for bit.  A
+stream's seed depends only on (seed, batch, node), as in every other path.
+
+Graphs are captured on one side stream per device (:func:`side_stream`),
+and the eager runs that record and warm them up run there too: a kernel's
+per-stream state (the cull's plan and scratch) is then made outside the
+graph.  A capture that fails raises; nothing falls back to eager on CUDA.
+
+Kernel wrappers count their launches through :func:`count`: ``launches``
+(launched by the host), ``captured`` (recorded into a graph) and
+``graph_launches`` (launched by replays: a graph's captured count each
+replay).
+"""
+
+from __future__ import annotations
+
+import collections
+import gc
+
+import numpy as np
+import torch
+
+from . import rng
+
+__all__ = ["Recorder", "Graph", "Replays", "side_stream", "on_side_stream",
+           "counted", "count", "hold", "enabled", "record", "pack_keys"]
+
+#: capture the fused loops and ``CompiledProgram.jitted`` on a CUDA device;
+#: False runs them eagerly (to compare the two)
+_ENABLED = True
+
+_COUNTED = []
+_streams = {}
+#: what the graph being captured must keep alive (see :func:`hold`)
+_held = None
+
+
+def enabled(device):
+    """Whether work on ``device`` is captured."""
+    return _ENABLED and torch.device(device).type == "cuda"
+
+
+def counted(fn):
+    """Give a kernel wrapper its launch counts (module docstring)."""
+    fn.launches = fn.captured = fn.graph_launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
+def count(fn):
+    """One launch of ``fn``'s kernel: recorded into the graph being
+    captured on the current stream, or launched by the host."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
+
+
+def hold(obj):
+    """Keep ``obj`` alive as long as the graph being captured, if one is:
+    device memory a captured kernel uses that its caller may drop (a
+    kernel's cached scratch)."""
+    if _held is not None:
+        _held.append(obj)
+
+
+def side_stream(device):
+    """The stream on which ``device``'s graphs are captured."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    s = _streams.get(index)
+    if s is None:
+        s = _streams[index] = torch.cuda.Stream(index)
+    return s
+
+
+class on_side_stream:
+    """Context manager: the work inside runs on :func:`side_stream`, after
+    the work queued before it on the current stream, and the current
+    stream waits for it at the end."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def __enter__(self):
+        self.outer = torch.cuda.current_stream(self.device)
+        self.side = side_stream(self.device)
+        self.side.wait_stream(self.outer)
+        self.ctx = torch.cuda.stream(self.side)
+        self.ctx.__enter__()
+        return self.side
+
+    def __exit__(self, *exc):
+        self.ctx.__exit__(*exc)
+        self.outer.wait_stream(self.side)
+
+
+class Recorder:
+    """Stream source of an eager run that is to be captured: generators
+    seeded as eagerly, each request noted relative to batch ``start``."""
+
+    def __init__(self, start=0):
+        self.start = int(start)
+        self.slots = []
+
+    def request(self, family, base, batch_index, uid, device):
+        self.slots.append((family, int(batch_index) - self.start, uid))
+        return rng.generator(rng.derive(family, base, batch_index, uid),
+                             device)
+
+    def key(self, generator):
+        return None
+
+
+def record(fn, start):
+    """``fn()`` run eagerly under a :class:`Recorder`; returns (its
+    result, the recorder)."""
+    rec = Recorder(start)
+    with rng.stream_source(rec):
+        return fn(), rec
+
+
+class _Replayer:
+    """Stream source during capture: the graph's generators, in the order
+    the recorded run asked for its streams."""
+
+    def __init__(self, graph, start):
+        self.graph, self.start, self.i, self.slot_of = graph, start, 0, {}
+
+    def request(self, family, base, batch_index, uid, device):
+        g = self.graph
+        want = (family, int(batch_index) - self.start, uid)
+        had = g.slots[self.i] if self.i < len(g.slots) else None
+        if had != want:
+            raise RuntimeError(
+                f"capture asked for stream {want} where its recorded run "
+                f"asked for {had}: the function's streams depend on more "
+                "than its batches")
+        if g.bases.setdefault(family, base) != base:
+            raise RuntimeError(
+                f"a captured function draws {family!r} streams under two "
+                "bases; a replay re-keys each family by one")
+        gen = g.gens[self.i]
+        self.slot_of[id(gen)] = self.i
+        self.i += 1
+        return gen
+
+    def key(self, generator):
+        i = self.slot_of.get(id(generator))
+        if i is None:
+            raise RuntimeError(
+                "a kernel in a graph being captured was keyed by a generator "
+                "that is not one of the graph's streams: its seed would be "
+                "fixed in the graph")
+        self.graph.need_keys = True
+        return self.graph.keys[i:i + 1]
+
+
+def pack_keys(seeds):
+    """64-bit unsigned seeds as the int64 words a kernel reads (the same
+    bits)."""
+    return np.array(seeds, dtype=np.uint64).view(np.int64)
+
+
+class Graph:
+    """``fn()`` captured on the current stream (a side stream) as a CUDA
+    graph whose streams are those ``recorder`` noted, relative to batch
+    ``start``.  ``persistent`` generators are registered too and never
+    re-seeded: their offsets advance across replays as they do eagerly.
+    :meth:`replay` returns ``fn``'s result, the graph's static outputs."""
+
+    def __init__(self, fn, recorder, start, device, persistent=()):
+        device = torch.device(device)
+        if torch.cuda.current_stream(device) == \
+                torch.cuda.default_stream(device):
+            raise RuntimeError("capture on a side stream (on_side_stream)")
+        self.slots = list(recorder.slots)
+        self.bases = {}
+        self.need_keys = False
+        self.gens = [torch.Generator(device=device) for _ in self.slots]
+        self.keys = torch.zeros(max(len(self.slots), 1), dtype=torch.int64,
+                                device=device)
+        graph = torch.cuda.CUDAGraph()
+        for g in (*self.gens, *persistent):
+            graph.register_generator_state(g)
+        before = [f.captured for f in _COUNTED]
+        source = _Replayer(self, int(start))
+        global _held
+        self.held = _held = []
+        # no garbage collection inside the capture: a collected graph's
+        # pool would be released while the stream is captured
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            graph.capture_begin()
+            try:
+                with rng.stream_source(source):
+                    self.out = fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:    # the capture is invalid already
+                    pass
+                raise
+            graph.capture_end()
+        finally:
+            _held = None
+            if gc_was_on:
+                gc.enable()
+        if source.i != len(self.slots):
+            raise RuntimeError(
+                f"capture asked for {source.i} streams, its recorded run "
+                f"for {len(self.slots)}")
+        self.graph = graph
+        # what the graph reads stays alive with it
+        self.fn = fn
+        self.kernels = [(f, f.captured - b)
+                        for f, b in zip(_COUNTED, before) if f.captured != b]
+        self.replays = 0
+        if self.need_keys:
+            self._pinned = torch.empty((2, len(self.slots)),
+                                       dtype=torch.int64, pin_memory=True)
+            self._events = [None, None]
+
+    def seeds(self, bases, start):
+        """Every stream's seed for a replay at batch ``start``."""
+        return [rng.derive(f, bases[f], start + rel, uid)
+                for f, rel, uid in self.slots]
+
+    def replay(self, bases, start):
+        seeds = self.seeds(bases, int(start))
+        for g, s in zip(self.gens, seeds):
+            g.manual_seed(s)
+        if self.need_keys:
+            j = self.replays % 2
+            if self._events[j] is not None:
+                # the copy two replays ago has read this buffer
+                self._events[j].synchronize()
+            self._pinned[j].numpy()[:] = pack_keys(seeds)
+            self.keys[:len(seeds)].copy_(self._pinned[j], non_blocking=True)
+            self._events[j] = torch.cuda.Event()
+            self._events[j].record()
+        self.graph.replay()
+        for f, k in self.kernels:
+            f.graph_launches += k
+        self.replays += 1
+        return self.out
+
+
+class Replays:
+    """Graphs of one function of a carried state, by key: the first call
+    with a key runs eagerly and is recorded, the second captures a graph
+    and replays it, later calls replay it.  The caller runs all of them on
+    :func:`on_side_stream`.  At most ``cap`` keys are kept, the least
+    recently used dropped first.  A kept graph holds its private memory
+    pool: scripts/torch_capture_ab.py --phases memory on an NVIDIA H100
+    80GB HBM3 at 700.00 W measured 123 MiB a graph for MA2 rejection's
+    kernel graph at 2**21, 232 MiB for the plain graph at 2**17, 44 MiB
+    for gauss2d SMC and 2 MiB for a BSL block, with two graphs a program
+    on those paths (the first chunk's and the steady one's; one a BSL
+    chain), so a cap of 8 bounds a program at about 1.9 GiB.
+
+    ``fn(state, start) -> (new_state, extra)``: ``state`` is a dict of
+    tensors, ``new_state`` a dict (what the function carries to the next
+    call), ``extra`` anything of tensors.  A graph holds static copies of
+    ``state`` and writes the keys of ``new_state`` that ``state`` has back
+    into them; the others are its outputs.  :meth:`__call__` returns the
+    new state (static tensors that the graph's next replay overwrites)
+    and ``extra``.  With ``snapshot`` a graph also returns, second, a copy
+    of the state it started from, taken inside it (the eager call's input
+    is left as it is, and is returned there).  ``key`` must fix every
+    shape the function sees, and every tensor it reads that the caller
+    may replace (a graph reads the tensors it was captured with)."""
+
+    def __init__(self, cap=8):
+        self.entries = collections.OrderedDict()
+        self.buffers = {}
+        #: what callers learn from a first eager call (shapes)
+        self.memo = {}
+        self.cap = cap
+        self.captures = 0
+        self.replays = 0
+        self.eager = 0
+
+    def buffer(self, name, shape, dtype, device):
+        """A tensor kept with these graphs under ``name``: an input that
+        they read and that the caller rewrites between calls (a
+        threshold, a proposal's mixture)."""
+        b = self.buffers.get(name)
+        if b is None:
+            b = self.buffers[name] = torch.empty(shape, dtype=dtype,
+                                                 device=device)
+        return b
+
+    def _put(self, key, entry):
+        self.entries[key] = entry
+        self.entries.move_to_end(key)
+        while len(self.entries) > self.cap:
+            self.entries.popitem(last=False)
+
+    def __call__(self, key, state, fn, bases, start, device, persistent=(),
+                 snapshot=False):
+        entry = self.entries.get(key)
+        if entry is None:
+            (new, extra), rec = record(lambda: fn(state, start), start)
+            self._put(key, rec)
+            self.eager += 1
+            out = {**state, **new}
+            return (out, (extra, state)) if snapshot else (out, extra)
+        if isinstance(entry, Recorder):
+            static = {k: v.clone() for k, v in state.items()}
+
+            def body():
+                snap = {k: v.clone() for k, v in static.items()} \
+                    if snapshot else None
+                new, extra = fn(static, start)
+                outs = {}
+                for k, v in new.items():
+                    if k in static:
+                        static[k].copy_(v)
+                    else:
+                        outs[k] = v
+                return outs, ((extra, snap) if snapshot else extra)
+
+            entry = (static, Graph(body, entry, start, device, persistent))
+            self.captures += 1
+        self._put(key, entry)
+        static, graph = entry
+        for k, v in state.items():
+            if v is not static[k]:
+                static[k].copy_(v)
+        outs, extra = graph.replay(bases, start)
+        self.replays += 1
+        return {**static, **outs}, extra

@@ -2,7 +2,8 @@
 sources, on one card and in turns.
 
     git show <ref>:elfi_tpu_torch/csrc/ma2_distance.cu > build/parent_csrc/...
-    (the same for gnk_distance.cu and philox.cuh), then on the card:
+    (the same for gnk_distance.cu, philox.cuh and sort_network.cuh), then
+    on the card:
     python scripts/torch_kernel_ab.py [--quick] [--out build/kernel_ab/ab.json]
 
 It builds both versions with the package's nvcc flags (one nvcc each, in
@@ -202,7 +203,8 @@ def main():
     specs = {
         "k1_old": (stage("k1_old", OLD, ma2_files), "ma2_distance.cu"),
         "k1_new": (stage("k1_new", NEW, ma2_files), "ma2_distance.cu"),
-        "k2_old": (stage("k2_old", OLD, gnk_files), "gnk_distance.cu"),
+        "k2_old": (stage("k2_old", OLD, gnk_files + ["sort_network.cuh"]),
+                   "gnk_distance.cu"),
         "k2_new": (stage("k2_new", NEW, gnk_files + ["sort_network.cuh"]),
                    "gnk_distance.cu"),
     }

@@ -13,7 +13,7 @@ import elfi_tpu_torch as et
 from elfi_tpu_torch.compile.compiler import compile_program
 from elfi_tpu_torch.methods.density_ratio_estimation import \
     DensityRatioEstimation
-from elfi_tpu_torch.methods.samplers import _gm_overrides_fn
+from elfi_tpu_torch.methods.samplers import _GMProposals
 from elfi_tpu_torch.methods.utils import GMDistribution
 from elfi_tpu_torch.model.model import node_uid
 from elfi_tpu_torch.models import gauss, ma2, ma2_kernel
@@ -247,7 +247,7 @@ def test_prepare_new_batch_equals_fused_builder(m4):
     pop.meta["cov"] = np.diag([0.4, 0.3])
     smc.sample(100, quantiles=[0.5], bar=False)        # round 1 begins
     assert smc.state["round"] == 1
-    builder = _gm_overrides_fn(
+    builder = _GMProposals(
         smc.parameter_names, 256, smc._prior.traceable_logpdf(),
         GMDistribution.prepare(pop.means, np.diag([0.4, 0.3]), pop.weights),
         get_sub_seed(13, 1))
