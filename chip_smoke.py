@@ -63,6 +63,21 @@ Phases, each of which raises on failure (exit code != 0):
    and n_obs 50, gated at (0.1, 0.1, 0.5, 0.05) from the JAX package's
    posterior means for the same call; K2 must run 32 times on the kernel
    graph and never on the plain one.
+7a. The observed data (``phase_observed``, at most 60 s): every zoo
+   model's observed data generated on the card through ``get_model``'s
+   default device from the Threefry streams (``utils/threefry.py``),
+   against the port's CPU result and, at every setting of
+   ``elfi_tpu_torch/models/data/*_observed.npz``, against the JAX
+   package's array (equal for Ricker, Lotka-Volterra and daycare, whose
+   event loop sums in XLA's CPU order; within 1e-6 of the scale for the
+   linear models, 1e-5 for the nonlinear recursions, 1e-2 absolute for
+   Lorenz-96); Lotka-Volterra's two settings at 50 observations are left
+   out (about 10 s each at batch 1); one setting of each model that no
+   file holds against the CPU.  Then MA2 rejection on
+   the K1 graph at ``seed_obs=1`` (2**28 simulations at 2**21, 5000
+   samples) within 0.01 of the JAX package's posterior means for the same
+   call, and g-and-k on the K2 graph at ``seed_obs=4`` (2**26 at 2**21)
+   within phase 7's gate of the JAX means; K1 128 and K2 32 launches.
 8. The adaptive distance: g-and-k octiles with ``AdaptiveDistance``, batch
    2**16, ``sample(1000, n_sim=2**20)``; two weight vectors, the second
    finite and positive, sorted finite 1-D distances, one seed giving one
@@ -646,7 +661,8 @@ def k2_ops(n_obs):
 
 def observed_autocovs(device):
     from elfi_tpu_torch.models import ma2
-    y = torch.as_tensor(ma2.observed_data(seed_obs=SEED_OBS))[None]
+    y = torch.as_tensor(ma2.observed_data(seed_obs=SEED_OBS,
+                                          device=device))[None]
     return torch.tensor([float(ma2.autocov(y)[0]),
                          float(ma2.autocov(y, lag=2)[0])],
                         dtype=torch.float32, device=device)
@@ -1221,11 +1237,13 @@ def phase_merge(device):
 
 
 def gnk_observed_sorted(n_obs, device):
-    """The sorted observed g-and-k sample at n_obs 50 (seed_obs 1); for the
-    other widths of the kernel checks, a sorted sample of N(3, 1)."""
+    """The sorted observed g-and-k sample at n_obs 50 (seed_obs 1),
+    generated on ``device``; for the other widths of the kernel checks, a
+    sorted sample of N(3, 1)."""
     from elfi_tpu_torch.models import gnk
     if n_obs == GNK_N_OBS:
-        y = gnk.observed_data(n_obs=n_obs, seed_obs=GNK_SEED_OBS)
+        y = gnk.observed_data(n_obs=n_obs, seed_obs=GNK_SEED_OBS,
+                              device=device)
     else:
         y = np.random.default_rng(n_obs).normal(3.0, 1.0, n_obs)
     return torch.tensor(np.sort(np.ravel(y)), dtype=torch.float32,
@@ -1382,6 +1400,221 @@ def phase_gnk_main_path(device):
         out[name] = dict(seconds=dt, sims_per_s=sims_s, launches=launches,
                          merge_launches=cull, means=means.tolist(),
                          n_batches=res.n_batches, peak_bytes=peak)
+    return out
+
+
+# The observed phase: the zoo's observed data generated on the card from
+# the Threefry streams, and the main path's kernels on data no file holds.
+OBS_MA2_SEED = 1             # the lowest MA2 seed_obs not in ma2_observed.npz
+OBS_GNK_SEED = 4             # the lowest g-and-k seed_obs not in gnk_observed
+# 0.01: about 4 (t1) and 3 (t2) combined Monte-Carlo SEs of the two runs'
+# top-5000 means (the JAX run's posterior sds 0.126 and 0.175)
+OBS_MA2_GATE = 0.01
+# Posterior means (t1, t2) of the JAX package for the same setting, n_sim
+# and n_samples on the plain graph, on the CPU:
+#   python -c 'import jax; jax.config.update("jax_platforms", "cpu");
+#   import elfi_tpu as elfi; from elfi_tpu.models import ma2;
+#   m = ma2.get_model(seed_obs=1);
+#   r = elfi.Rejection(m["d"], batch_size=2**17, seed=1).sample(
+#       5000, n_sim=2048 * 2**17, bar=False);
+#   print([float(r.samples[k].mean()) for k in ("t1", "t2")])'
+OBS_MA2_JAX_MEANS = np.array([0.7293426394462585, 0.7249208092689514])
+# ... and (A, B, g, k) for the g-and-k call of phase 7 at seed_obs 4:
+#   python -c 'import jax; jax.config.update("jax_platforms", "cpu");
+#   import elfi_tpu as elfi; from elfi_tpu.models import gnk;
+#   m = gnk.get_model(n_obs=50, seed_obs=4);
+#   r = elfi.Rejection(m["d"], batch_size=2**21, seed=1).sample(
+#       5000, n_sim=2**26, bar=False);
+#   print([float(r.samples[k].mean()) for k in "ABgk"])'
+OBS_GNK_JAX_MEANS = np.array([3.0233232975006104, 1.3733577728271484,
+                              5.362576007843018, 0.2818874716758728])
+OBS_LIMIT_S = 60.0
+#: tolerances of the generated data (tests/unit/test_torch_zoo_observed.py):
+#: 0 is equality, a float is an rtol of the array's largest magnitude, and
+#: ("atol", x) an absolute tolerance
+OBS_TOL = {"ma2": 1e-6, "gnk": 1e-6, "bignk": 1e-6, "gauss": 1e-6,
+           "ar1": 1e-6, "arch": 1e-5, "mg1": 1e-5,
+           "stochastic_volatility": 1e-5, "toad": 1e-5, "ricker": 0,
+           "lotka_volterra": 0, "daycare": 0, "lorenz": ("atol", 1e-2)}
+OBS_NODE = {"ma2": "MA2", "gnk": "GNK", "bignk": "BiGNK", "gauss": "gauss",
+            "ar1": "AR1", "arch": "Y", "mg1": "MG1",
+            "stochastic_volatility": "a_svm", "toad": "toad",
+            "ricker": "Ricker", "lotka_volterra": "LV", "daycare": "DCC",
+            "lorenz": "Lorenz"}
+#: one setting of each model that no file holds: the card against the CPU
+OBS_UNSTORED = [
+    ("ma2", dict(seed_obs=OBS_MA2_SEED)),
+    ("gnk", dict(seed_obs=OBS_GNK_SEED)),
+    ("bignk", dict(seed_obs=5, n_obs=70)),
+    ("gauss", dict(nd_mean=True, cov_matrix=2 * np.eye(2))),
+    ("ar1", dict(n_obs=500, seed_obs=2, true_params=[.5])),
+    ("arch", dict(seed_obs=6, n_obs=70, true_params=[.1, .4])),
+    ("mg1", dict(seed_obs=6, n_obs=70, true_params=[.5, 3., .3])),
+    ("stochastic_volatility", dict(seed_obs=8, n_obs=80,
+                                   true_params=[1.5, -.3])),
+    ("toad", dict(seed_obs=9, true_params=[1.3, 20., .4])),
+    ("ricker", dict(seed_obs=11, n_obs=80, true_params=[4.2, .2, 20.])),
+    ("lorenz", dict(seed_obs=5, initial_state=np.linspace(-1, 5, 40))),
+    ("lotka_volterra", dict(seed_obs=6, n_obs=20, time_end=10.,
+                            observation_noise=True)),
+    ("daycare", dict(seed_obs=8, n_dcc=3, n_ind=12, n_strains=6, n_obs=8,
+                     time_end=1.))]
+
+
+def committed_settings():
+    """(model, get_model arguments, the JAX package's array) for every
+    array in ``elfi_tpu_torch/models/data/*_observed.npz``."""
+    import ast
+    from elfi_tpu_torch import models
+    by_key = {"ma2": {}, "gnk": {}, "bignk": {},
+              "gauss": {"nd_seed_0": GAUSS_KW},
+              "ricker": {"deterministic_seed_0": dict(stochastic=False),
+                         "bench_seed_4": dict(seed_obs=4)}}
+    out = []
+    for path in sorted((Path(models.__file__).parent / "data").glob(
+            "*_observed.npz")):
+        name = path.name[:-len("_observed.npz")]
+        with np.load(path) as data:
+            for key in data.files:
+                if "=" in key:
+                    kw = {k: ast.literal_eval(v) for k, v in
+                          (part.split("=", 1) for part in key.split(";"))}
+                else:
+                    kw = by_key[name].get(
+                        key, dict(seed_obs=int(key.rsplit("_", 1)[1])))
+                out.append((name, kw, data[key]))
+    return out
+
+
+def observed_gap(name, got, want):
+    """The largest gap of ``got`` from ``want`` in the unit its tolerance
+    is stated in, and whether it is within that tolerance."""
+    tol = OBS_TOL[name]
+    if got.shape != want.shape:
+        return math.inf, False
+    if isinstance(tol, tuple):
+        gap = float(np.max(np.abs(got - want)))
+        return gap, gap <= tol[1]
+    scale = float(np.max(np.abs(want))) or 1.0
+    gap = float(np.max(np.abs(got - want))) / scale
+    return gap, gap <= tol
+
+
+def too_long(name, kw):
+    """The committed settings left out of the card's generation: the
+    Lotka-Volterra event loop at 50 observations over 30 time units takes
+    about 10,000 steps of some 40 launches each at batch 1, 8.5-10.4 s on
+    the card (probe, PR 15); its small setting (8 observations over 5)
+    stands in, and the CPU tests hold the generator to the JAX package."""
+    return name == "lotka_volterra" and kw.get("n_obs", 50) == 50 \
+        and kw.get("time_end", 30.) == 30.
+
+
+def observed_data_checks():
+    """The zoo's observed data generated through ``get_model``'s default
+    device (the card), against the port's CPU result and the JAX package's
+    committed arrays; returns the walls and the largest gaps."""
+    import importlib
+    import elfi_tpu_torch as et
+    check(et.get_client().device.type == "cuda",
+          "the global backend's device is not the card")
+    t_phase = time.perf_counter()
+    gaps, walls, failed = {}, {}, []
+    cases = [(name, kw, want, True) for name, kw, want in
+             committed_settings()]
+    cases += [(name, kw, None, False) for name, kw in OBS_UNSTORED]
+    for name, kw, want, stored in cases:
+        label = ";".join(f"{k}={v}" for k, v in kw.items()
+                         if k != "initial_state")
+        if too_long(name, kw):
+            log(f"observed: {name} {label}: not generated on the card (an "
+                "event loop of about 10,000 steps at batch 1; the small "
+                "setting stands in)")
+            continue
+        mod = importlib.import_module(f"elfi_tpu_torch.models.{name}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = mod.get_model(**kw).observed[OBS_NODE[name]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = mod.observed_data(**kw, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        walls[f"{name} {label}"] = wall
+        gap, ok = observed_gap(name, card, cpu)
+        gaps.setdefault(name, {"card_cpu": 0.0, "card_jax": 0.0})
+        gaps[name]["card_cpu"] = max(gaps[name]["card_cpu"], gap)
+        if not ok:
+            failed.append(f"{name} {label}: card vs CPU {gap}")
+        if stored:
+            gap, ok = observed_gap(name, card, want)
+            gaps[name]["card_jax"] = max(gaps[name]["card_jax"], gap)
+            if not ok:
+                failed.append(f"{name} {label}: card vs JAX {gap}")
+        log(f"observed: {name} {label}: {wall!r} s on the card, {cpu_s!r} s"
+            " on the CPU")
+    for name, g in gaps.items():
+        log(f"observed: {name}: largest gap card vs CPU {g['card_cpu']!r}, "
+            f"card vs the JAX arrays {g['card_jax']!r} (tolerance "
+            f"{OBS_TOL[name]!r})")
+    check(not failed, "observed data out of tolerance: " + "; ".join(failed))
+    return {"generation_s": time.perf_counter() - t_phase, "walls_s": walls,
+            "gaps": gaps}
+
+
+def phase_observed(device):
+    """The observed data of every zoo model generated on the card
+    (:func:`observed_data_checks`); then MA2 rejection on the K1 graph at
+    seed_obs 1 and g-and-k on the K2 graph at seed_obs 4, data no file
+    holds, against the JAX package's posterior means for the same calls."""
+    from elfi_tpu_torch.models import gnk_kernel, ma2_kernel
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.ops.kernels.topn import topn_cull
+    t_phase = time.perf_counter()
+    out = observed_data_checks()
+    generation_s = out["generation_s"]
+
+    for label, mod, kw, bs, n_sim, kernel, want, gate, names in (
+            ("ma2 kernel graph, seed_obs 1", ma2_kernel,
+             dict(seed_obs=OBS_MA2_SEED), KERNEL_BATCH, N_SIM, ma2_distance,
+             OBS_MA2_JAX_MEANS, np.full(2, OBS_MA2_GATE), ("t1", "t2")),
+            ("gnk kernel graph, seed_obs 4", gnk_kernel,
+             dict(n_obs=GNK_N_OBS, seed_obs=OBS_GNK_SEED), GNK_BATCH,
+             GNK_N_SIM, gnk_distance, OBS_GNK_JAX_MEANS, GNK_GATE,
+             GNK_NAMES)):
+        m = mod.get_model(**kw)
+        timed_sample(m["d"], bs, N_SAMPLES, 2 * bs, device, seed=0)
+        reset_counts(kernel, topn_cull)
+        res, dt = timed_sample(m["d"], bs, N_SAMPLES, n_sim, device)
+        launches, cull = ran(kernel), ran(topn_cull)
+        expect = math.ceil(n_sim / bs)
+        d = res.outputs["d"]
+        check(d.shape == (N_SAMPLES,) and bool(np.all(np.isfinite(d))),
+              f"{label}: distances {d.shape}")
+        check(res.n_sim == n_sim, f"{label}: n_sim {res.n_sim}")
+        x = np.stack([res.samples[k] for k in names], axis=1)
+        check(bool(np.all(np.isfinite(x))), f"{label}: non-finite samples")
+        means = x.mean(axis=0)
+        se = x.std(axis=0, ddof=1) / math.sqrt(len(x))
+        err = np.abs(means - want)
+        log(f"observed: {label}: posterior means {means.tolist()!r} |err| "
+            f"from JAX {err.tolist()!r} (gate < {gate.tolist()}), "
+            f"Monte-Carlo SEs {se.tolist()!r}; {res.n_sim} sims in {dt!r} s;"
+            f" {kernel.__name__} launches {launches} (expected {expect}); "
+            f"topn_cull launches {cull}")
+        check(bool(np.all(err < gate)), f"{label}: gate failed: {means}")
+        check(launches == expect, f"{label}: {kernel.__name__} launched "
+              f"{launches} times, expected {expect}")
+        check(cull > 0, f"{label}: the merge never went through topn_cull")
+        out[label] = dict(seconds=dt, sims_per_s=res.n_sim / dt,
+                          launches=launches, merge_launches=cull,
+                          means=means.tolist(), se=se.tolist())
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"observed phase: {out['wall_s']!r} s (generation "
+        f"{generation_s!r} s, limit {OBS_LIMIT_S})")
+    check(out["wall_s"] < OBS_LIMIT_S,
+          f"the observed phase took {out['wall_s']} s")
     return out
 
 
@@ -4376,6 +4609,8 @@ def main():
     merge = phase_merge(device)
     k2_checks = phase_gnk_kernel_checks(device)
     main_path.update(phase_gnk_main_path(device))
+    observed = phase_observed(device)
+    main_path["observed"] = observed
     adaptive = phase_adaptive(device)
     phase_smc_proposals(device)
     main_path["gauss2d smc"] = phase_gauss_smc(device)
@@ -4416,7 +4651,10 @@ def main():
         "ma2 rejection, cluster master with no worker": bl["cluster local"],
         "ma2 rejection, multihost rank 0": bl["multihost rank 0"],
         "ma2 rejection, multihost rank 1": bl["multihost rank 1"]}
+    obs_k1 = observed["ma2 kernel graph, seed_obs 1"]
+    obs_k2 = observed["gnk kernel graph, seed_obs 4"]
     k1_launches = (main_path["kernel graph"]["launches"]
+                   + obs_k1["launches"]
                    + main_path["ma2 smc kernel graph"]["launches"]
                    + sum(pool_launches.values())
                    + sum(k1_backends.values()))
@@ -4430,6 +4668,10 @@ def main():
             main_path["gnk plain graph"]["merge_launches"],
         "gnk rejection kernel graph":
             main_path["gnk kernel graph"]["merge_launches"],
+        "ma2 rejection kernel graph, seed_obs 1":
+            obs_k1["merge_launches"],
+        "gnk rejection kernel graph, seed_obs 4":
+            obs_k2["merge_launches"],
         "ma2 smc plain graph":
             main_path["ma2 smc plain graph"]["merge_launches"],
         "ma2 smc kernel graph":
@@ -4452,6 +4694,8 @@ def main():
         "launches_by_path": {
             "ma2 rejection kernel graph":
                 main_path["kernel graph"]["launches"],
+            "ma2 rejection kernel graph, seed_obs 1 (generated data)":
+                obs_k1["launches"],
             "ma2 smc kernel graph":
                 main_path["ma2 smc kernel graph"]["launches"],
             "ma2 rejection, no device given": default_device["launches"],
@@ -4477,10 +4721,12 @@ def main():
         "source": "elfi_tpu_torch/csrc/gnk_distance.cu",
         "replaces": "elfi_tpu/ops/pallas_kernels.py:157",
         "launches": (main_path["gnk kernel graph"]["launches"]
-                     + bl["list gnk"]),
+                     + obs_k2["launches"] + bl["list gnk"]),
         "launches_by_path": {
             "gnk rejection kernel graph":
                 main_path["gnk kernel graph"]["launches"],
+            "gnk rejection kernel graph, seed_obs 4 (generated data)":
+                obs_k2["launches"],
             "gnk rejection over the device list": bl["list gnk"]},
         "max_abs_err": k2_checks["max_abs_err"],
         "max_rel_err": k2_checks["max_rel_err"],

@@ -4,7 +4,9 @@
 The simulator is a draw of the innovations followed by the pure recursion
 :func:`AR1_from_noise`, an eager loop over the time axis (the JAX
 package's ``lax.scan``).  The observed series are the JAX package's
-(``data/ar1_observed.npz``), for the stored settings only."""
+draws for any setting: the innovations come from the Threefry stream of
+``key(seed_obs or 0)``; ``data/ar1_observed.npz`` holds the JAX package's
+series the generator is held to."""
 
 from __future__ import annotations
 
@@ -14,11 +16,13 @@ from pathlib import Path
 import torch
 
 from ..model.model import Distance, Model, Prior, Simulator
-from ._observed import load_observed_setting
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 from ._stats import batch_param
 
 __all__ = ["AR1", "AR1_from_noise", "get_model", "observed_data"]
 
+#: the JAX package's arrays, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "ar1_observed.npz"
 
 
@@ -42,10 +46,14 @@ def AR1(phi, n_obs=200, batch_size=1, generator=None):
     return AR1_from_noise(phi, w)
 
 
-def observed_data(n_obs=200, true_params=None, seed_obs=None):
-    """The JAX package's observed series for this setting."""
-    return load_observed_setting(_DATA, n_obs=n_obs, true_params=true_params
-                                 or [.9], seed_obs=seed_obs)
+@memoised
+def observed_data(n_obs=200, true_params=None, seed_obs=None, device=None):
+    """The observed series (n_obs,), the JAX package's draw: the
+    innovations ``normal(key(seed_obs or 0), (n_obs, 1))`` through
+    :func:`AR1_from_noise`, on ``device`` (None: the global backend's)."""
+    k = observed_key(seed_obs, device)
+    (phi,) = true_values(true_params or [.9], k.device)
+    return first_row(AR1_from_noise(phi, threefry.normal(k, (n_obs, 1))))
 
 
 def get_model(n_obs=200, true_params=None, seed_obs=None):

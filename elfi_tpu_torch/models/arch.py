@@ -3,7 +3,9 @@
 
 The simulator is a draw of the normals followed by the pure recursion
 :func:`arch_from_noise`, an eager loop over the time axis.  The observed
-series are the JAX package's (``data/arch_observed.npz``)."""
+series are the JAX package's draws for any setting, from the Threefry
+streams of ``key(seed_obs or 0)``; ``data/arch_observed.npz`` holds the JAX
+package's series the generator is held to."""
 
 from __future__ import annotations
 
@@ -14,12 +16,14 @@ from pathlib import Path
 import torch
 
 from ..model.model import Distance, Model, Prior, Simulator, Summary
-from ._observed import load_observed_setting
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 from ._stats import batch_param
 
 __all__ = ["arch", "arch_from_noise", "get_model", "observed_data",
            "sample_mean", "sample_variance", "autocorr", "pairwise_autocorr"]
 
+#: the JAX package's arrays, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "arch_observed.npz"
 
 
@@ -67,10 +71,16 @@ def pairwise_autocorr(x, lag_i=1, lag_j=1):
     return autocorr(x, lag_i) * autocorr(x, lag_j)
 
 
-def observed_data(n_obs=100, true_params=None, seed_obs=None):
-    """The JAX package's observed series for this setting."""
-    return load_observed_setting(_DATA, n_obs=n_obs, true_params=true_params
-                                 or [0.3, 0.7], seed_obs=seed_obs)
+@memoised
+def observed_data(n_obs=100, true_params=None, seed_obs=None, device=None):
+    """The observed series (n_obs,), the JAX package's draw: with ``k0, k1
+    = split(key(seed_obs or 0))``, ``e0 = normal(k0, (1,))`` and ``xi =
+    normal(k1, (n_obs, 1))`` through :func:`arch_from_noise`, on
+    ``device`` (None: the global backend's)."""
+    k0, k1 = threefry.split(observed_key(seed_obs, device))
+    t1, t2 = true_values(true_params or [0.3, 0.7], k0.device)
+    return first_row(arch_from_noise(t1, t2, threefry.normal(k0, (1,)),
+                                     threefry.normal(k1, (n_obs, 1))))
 
 
 def get_model(n_obs=100, true_params=None, seed_obs=None, n_lags=5):

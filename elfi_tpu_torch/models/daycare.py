@@ -6,7 +6,8 @@ strain), solved with the Gillespie direct method.  The state is a (batch,
 n_dcc, n_ind, n_strains) bool tensor on the device; an event step computes
 every centre's hazards, its total and its exponential waiting time at
 once, finds the reaction by ``searchsorted`` on the centre's cumulative
-hazards (the count ``sum(u >= cum[:-1])`` of the JAX package), and flips
+hazards (the count ``sum(u >= cum[:-1])`` of the JAX package, which the
+observed data's loop takes itself), and flips
 that one state entry by a scatter (the JAX package builds a (batch, n_dcc,
 n_ind * n_strains) one-hot instead).  A centre whose clock has passed
 ``time_end`` stops: its steps are masked no-ops.  The loop ends when every
@@ -21,7 +22,11 @@ it carries any strain, ``P_s`` the centre's carriage of s with each
 carrier's strains weighted ``1 / (its count)`` -- and a carrier clears a
 strain at rate 1.  The draws come from ``step_noise``, so a test can feed
 :func:`daycare_from_noise` the JAX package's own.  The observed data are
-the JAX package's (``data/daycare_observed.npz``)."""
+the JAX package's draws for any setting: :func:`observed_data` drives the
+loop with the key stream of the JAX simulator at batch 1 and sums in the
+order XLA's CPU code sums (``xla_order``), so the states are the JAX
+package's bit for bit; ``data/daycare_observed.npz`` holds the JAX
+package's states the generator is held to."""
 
 from __future__ import annotations
 
@@ -32,12 +37,15 @@ import torch
 
 from ..model.model import Discrepancy, Model, Operation, Prior, Simulator, \
     Summary
-from ._observed import load_observed_setting
+from ..parallel.backends import resolve_device
+from ..utils import threefry, xla_math
+from ._observed import first_row, memoised, true_values
 
 __all__ = ["daycare", "daycare_from_noise", "get_model", "observed_data",
            "ss_shannon", "ss_strains", "ss_prevalence",
            "ss_prevalence_multi", "distance", "last_run"]
 
+#: the JAX package's states, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "daycare_observed.npz"
 
 _MAX_EVENTS = 20000
@@ -51,10 +59,19 @@ last_run = {"steps": 0, "checks": 0}
 
 def daycare_from_noise(t1, t2, t3, step_noise, n_dcc=29, n_ind=53,
                        n_strains=33, freq_strains_commun=None, n_obs=36,
-                       time_end=10., check_every=CHECK_EVERY):
+                       time_end=10., check_every=CHECK_EVERY,
+                       xla_order=False):
     """Cross-sectional carriage states, (batch, n_dcc, n_obs, n_strains)
     float32.  ``step_noise(s, k)`` gives steps ``s .. s + k - 1``'s
-    standard exponentials and uniforms, each (k, batch, n_dcc)."""
+    standard exponentials and uniforms, each (k, batch, n_dcc).  With
+    ``xla_order`` every sum (a strain's weight, a centre's total, the
+    running sums the reaction is read from) is taken in the order XLA's
+    CPU code takes it, and the weight's multiply-add is fused, so that the
+    states are the JAX package's bit for bit on the card and the CPU;
+    without, torch sums as it likes (a rounding apart, which moves an
+    event now and then).  The simulator sums as torch likes: XLA's order
+    takes 17.88 against 2.93 ms a step at 2048 members on an H100
+    (``scripts/torch_xla_order_ab.py``)."""
     E, U = step_noise(0, min(check_every, _MAX_EVENTS))
     device = E.device
     b = E.shape[1]
@@ -83,16 +100,32 @@ def daycare_from_noise(t1, t2, t3, step_noise, n_dcc=29, n_ind=53,
             per_ind = sf.sum(dim=3, keepdim=True)          # (b, D, I, 1)
             carrier = per_ind > 0
             inv = torch.where(carrier, 1.0 / per_ind, 0.0)
-            P = (sf * inv).sum(dim=2, keepdim=True)        # (b, D, 1, S)
-            base = t1 * P * n_factor + 1e-9 + prob_commun
+            share = sf * inv             # the JAX package's sf / per_ind
+            cells = (b, n_dcc, n_cells)
+            if xla_order:
+                P = xla_math.reduce_sum(share.transpose(2, 3),
+                                        (3,))[:, :, None]  # (b, D, 1, S)
+                base = xla_math.fma(t1 * P, n_factor, 1e-9) + prob_commun
+            else:
+                P = share.sum(dim=2, keepdim=True)
+                base = t1 * P * n_factor + 1e-9 + prob_commun
             hazards = torch.where(carrier, t3 * base, base)
             hazards.masked_fill_(state, gamma)
-            total = hazards.sum(dim=(2, 3))                # (b, D)
+            if xla_order:
+                total = xla_math.reduce_sum(hazards, (2, 3))   # (b, D)
+                cum = xla_math.cumsum(hazards.view(cells))
+                u = (U[j] * total)[..., None]
+                # the JAX package's count: a running sum in XLA's order
+                # may step back an ulp where two blocks meet, so no
+                # binary search
+                idx = (u >= cum[..., :-1]).sum(dim=2).view(-1, 1)
+            else:
+                total = hazards.sum(dim=(2, 3))
+                cum = torch.cumsum(hazards.view(cells), dim=2)
+                u = (U[j] * total)[..., None]
+                idx = torch.searchsorted(cum, u, right=True).clamp_(
+                    max=n_cells - 1).view(-1, 1)
             dt = E[j] / total
-            cum = torch.cumsum(hazards.view(b, n_dcc, n_cells), dim=2)
-            u = (U[j] * total)[..., None]
-            idx = torch.searchsorted(cum, u, right=True).clamp_(
-                max=n_cells - 1).view(-1, 1)
             active = time < time_end
             cur = flat.gather(1, idx)
             flat.scatter_(1, idx, cur ^ active.view(-1, 1))
@@ -162,16 +195,32 @@ def distance(*summaries, observed):
     return torch.sum(torch.abs(x - y), dim=(0, 2)) / (n_ss * n_dcc)
 
 
-def observed_data(true_params=None, seed_obs=None, **kwargs):
-    """The JAX package's observed states for this setting."""
-    return load_observed_setting(_DATA, true_params=true_params
-                                 or [3.6, 0.6, 0.1], seed_obs=seed_obs,
-                                 **_sizes(**kwargs))
+@memoised
+def observed_data(true_params=None, seed_obs=None, device=None, **kwargs):
+    """The observed states (n_dcc, n_obs, n_strains), the JAX package's
+    draw on ``device`` (None: the global backend's); ``kwargs`` are the
+    size arguments of :func:`daycare`.  Event step j splits the chain's key
+    (from ``key(seed_obs or 0)``) into (next key, k1, k2) and draws
+    ``exponential(k1, (1, n_dcc))`` and ``uniform(k2, (1, n_dcc, 1))``.
+    The chain of keys runs on the host (one short integer hash a step),
+    the draws on the device."""
+    device = resolve_device(device)
+    n_dcc = kwargs.get("n_dcc", 29)
+    chain = [threefry.seed_words(seed_obs or 0)]
 
+    def step_noise(s, k):
+        draws = []
+        for _ in range(k):
+            nxt, k1, k2 = threefry.host_split(chain[-1], 3)
+            chain.append(nxt)
+            draws.append((k1, k2))
+        k12 = torch.tensor(draws, dtype=torch.int64, device=device)
+        return (threefry.exponential(k12[:, 0], (1, n_dcc)),
+                threefry.uniform(k12[:, 1], (1, n_dcc)))
 
-def _sizes(n_dcc=29, n_ind=53, n_strains=33, n_obs=36, time_end=10.):
-    return dict(n_dcc=n_dcc, n_ind=n_ind, n_strains=n_strains, n_obs=n_obs,
-                time_end=float(time_end))
+    params = true_values(true_params or [3.6, 0.6, 0.1], device)
+    return first_row(daycare_from_noise(*params, step_noise, **kwargs,
+                                        xla_order=True))
 
 
 def get_model(true_params=None, seed_obs=None, **kwargs):

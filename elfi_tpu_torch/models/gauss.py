@@ -2,18 +2,18 @@
 :mod:`elfi_tpu.models.gauss`; reference ``elfi/examples/gauss.py``).
 
 The observed sample must be the JAX package's: the bench gates downstream
-were set on the ``y`` that ``jax.random.key(seed_obs or 0)`` draws.  The
-port does not import JAX, so ``data/gauss_observed.npz`` holds the JAX
-package's draws, made on the CPU with ``elfi_tpu.models.gauss``, for these
-settings only (n_obs=50 in both):
+were set on the ``y`` that ``jax.random.key(seed_obs or 0)`` draws.
+:func:`observed_data` draws the same normals from the Threefry stream of
+that key, for any setting and any SPD ``cov_matrix``.
+``data/gauss_observed.npz`` holds the JAX package's draws, made on the CPU
+with ``elfi_tpu.models.gauss``, for these settings (n_obs=50 in both), the
+arrays the generator is held to:
 
 - ``nd_seed_0``: the 2-D mean model of the bench's SMC phase,
   ``nd_mean=True``, ``true_params=[4.0, 2.0]``, ``cov_matrix=eye(2)``,
   ``seed_obs`` None (0);
 - ``1d_seed_<s>``: the 1-D model at its defaults, ``true_params=[4, .4]``,
   for ``seed_obs`` in {0, 3}.
-
-The tests check both against the JAX package's draw.
 """
 
 from __future__ import annotations
@@ -26,29 +26,41 @@ import torch
 
 from ..model.model import Discrepancy, Distance, Model, Prior, Simulator, \
     Summary
-from ._observed import load_observed
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 
 __all__ = ["gauss", "gauss_nd_mean", "get_model", "ss_mean", "ss_var",
            "euclidean_multidim"]
 
+#: the JAX package's samples, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "gauss_observed.npz"
-_ND_PARAMS = (4.0, 2.0)
-_1D_PARAMS = (4, .4)
 
 
 def gauss(mu, sigma, n_obs=50, batch_size=1, generator=None):
     """1-D Gaussian observations; (batch, n_obs) on ``mu``'s device."""
+    mu = torch.as_tensor(mu)
+    return _gauss_from_noise(mu, sigma, torch.randn(
+        (batch_size, n_obs), generator=generator, device=mu.device))
+
+
+def _gauss_from_noise(mu, sigma, z):
+    """``mu + sigma z`` on the standard normals ``z`` (batch, n_obs)."""
     mu = torch.as_tensor(mu).reshape(-1, 1)
     sigma = torch.as_tensor(sigma).reshape(-1, 1)
-    return mu + sigma * torch.randn((batch_size, n_obs), generator=generator,
-                                    device=mu.device)
+    return mu + sigma * z
 
 
 def _nd_mean(mu, L, n_obs, batch_size, generator):
-    mus = torch.stack([torch.broadcast_to(torch.as_tensor(m).float(),
-                                          (batch_size,)) for m in mu], dim=1)
     z = torch.randn((batch_size, n_obs, len(mu)), generator=generator,
-                    device=mus.device)
+                    device=torch.as_tensor(mu[0]).device)
+    return _nd_mean_from_noise(mu, L, z)
+
+
+def _nd_mean_from_noise(mu, L, z):
+    """``mu + z L^T`` on the standard normals ``z`` (batch, n_obs,
+    n_dim)."""
+    mus = torch.stack([torch.broadcast_to(torch.as_tensor(m).float(),
+                                          (z.shape[0],)) for m in mu], dim=1)
     return mus[:, None, :] + z @ L.T
 
 
@@ -109,19 +121,24 @@ for _op in (gauss, _GaussNdMean, ss_mean, ss_var, euclidean_multidim):
     _op.capturable = True
 
 
+@memoised
 def observed_data(n_obs=50, true_params=None, seed_obs=None, nd_mean=False,
-                  cov_matrix=None):
-    """The JAX package's observed sample for these settings; only the
-    committed settings are available."""
+                  cov_matrix=None, device=None):
+    """The observed sample, the JAX package's draw: the normals
+    ``normal(key(seed_obs or 0), (1, n_obs))`` (1-D) or ``(1, n_obs,
+    n_dim)`` times the float32 Cholesky factor of ``cov_matrix`` (n-D), on
+    ``device`` (None: the global backend's)."""
+    if true_params is None:
+        true_params = [4, 4] if nd_mean else [4, .4]
+    k = observed_key(seed_obs, device)
+    params = true_values(true_params, k.device)
     if nd_mean:
-        if cov_matrix is None or not np.array_equal(
-                np.asarray(cov_matrix, np.float64), np.eye(2)):
-            raise ValueError("only cov_matrix=eye(2) is stored for the "
-                             "n-D mean model of the PyTorch port")
-        return load_observed(_DATA, n_obs, 50, true_params, _ND_PARAMS,
-                             seed_obs, prefix="nd_")
-    return load_observed(_DATA, n_obs, 50, true_params, _1D_PARAMS,
-                         seed_obs, prefix="1d_")
+        L = torch.as_tensor(np.linalg.cholesky(
+            np.asarray(cov_matrix, np.float32)), device=k.device)
+        z = threefry.normal(k, (1, n_obs, len(params)))
+        return first_row(_nd_mean_from_noise(params, L, z))
+    return first_row(_gauss_from_noise(*params,
+                                       threefry.normal(k, (1, n_obs))))
 
 
 def get_model(n_obs=50, true_params=None, seed_obs=None, nd_mean=False,

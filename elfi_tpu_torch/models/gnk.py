@@ -2,11 +2,11 @@
 :mod:`elfi_tpu.models.gnk`; reference ``elfi/examples/gnk.py``).
 
 The observed sample must be the JAX package's: the gates downstream were
-set on the ``y`` that ``jax.random.key(seed_obs or seed or 0)`` draws.  The
-port does not import JAX, so the sample for ``seed_obs`` in {0, 1, 2, 3}
-(n_obs=50, true parameters (3, 1, 2, 0.5)) is committed in
-``data/gnk_observed.npz``; the tests check it against the JAX package's
-draw.
+set on the ``y`` that ``jax.random.key(seed_obs or seed or 0)`` draws.
+:func:`observed_data` draws the same normals from the Threefry stream of
+that key, for any setting; ``data/gnk_observed.npz`` holds the JAX
+package's samples for ``seed_obs`` in {0, 1, 2, 3} (n_obs=50, true
+parameters (3, 1, 2, 0.5)), the arrays the generator is held to.
 """
 
 from __future__ import annotations
@@ -18,11 +18,13 @@ import numpy as np
 import torch
 
 from ..model.model import Discrepancy, Model, Prior, Simulator, Summary
-from ._observed import load_observed
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 
 __all__ = ["GNK", "gnk_quantile", "get_model", "observed_data", "ss_order",
            "ss_robust", "ss_octile", "ss_octile_sq", "euclidean_multiss"]
 
+#: the JAX package's samples, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "gnk_observed.npz"
 TRUE_PARAMS = (3, 1, 2, .5)
 #: the octiles' percentages, as ``jnp.linspace(12.5, 87.5, 7)`` gives them
@@ -119,12 +121,15 @@ for _op in (GNK, ss_order, euclidean_multiss):
     _op.capturable = True
 
 
-def observed_data(n_obs=50, true_params=None, seed_obs=None):
-    """The JAX package's observed g-and-k sample (n_obs, 1) for
-    ``seed_obs`` (None means 0, as there); only the committed settings are
-    available."""
-    return load_observed(_DATA, n_obs, 50, true_params, TRUE_PARAMS,
-                         seed_obs)
+@memoised
+def observed_data(n_obs=50, true_params=None, seed_obs=None, device=None):
+    """The observed g-and-k sample (n_obs, 1), the JAX package's draw: the
+    normals ``normal(key(seed_obs or 0), (1, n_obs))`` through
+    :func:`gnk_quantile`, on ``device`` (None: the global backend's)."""
+    k = observed_key(seed_obs, device)
+    params = true_values(true_params or TRUE_PARAMS, k.device)
+    z = threefry.normal(k, (1, n_obs))
+    return first_row(gnk_quantile(z, *params)[:, :, None])
 
 
 def get_model(n_obs=50, true_params=None, seed=None, seed_obs=None):

@@ -5,7 +5,12 @@
 The simulator is a draw of the closure noise followed by the pure
 transform :func:`forecast_lorenz_from_noise`: an eager loop of RK4 steps,
 each a few batched ops on the (batch, n_obs) state.  The observed
-trajectories are the JAX package's (``data/lorenz_observed.npz``)."""
+trajectories are the JAX package's draws for any setting and initial
+state: the closure noise comes from the Threefry stream of ``key(seed_obs
+or 0)``; ``data/lorenz_observed.npz`` holds the JAX package's trajectories
+the generator is held to (the system is chaotic over the 4 time units, so
+the float32 rounding of the two packages' RK4 steps leaves a gap that
+grows along the trajectory)."""
 
 from __future__ import annotations
 
@@ -16,11 +21,13 @@ import numpy as np
 import torch
 
 from ..model.model import Distance, Model, Prior, Simulator, Summary
-from ._observed import load_observed_setting
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 
 __all__ = ["forecast_lorenz", "forecast_lorenz_from_noise", "get_model",
            "observed_data", "mean", "var", "cov", "xcov", "autocov"]
 
+#: the JAX package's trajectories, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "lorenz_observed.npz"
 
 # default initial state of Hakkarainen et al. (2012), 40 sites
@@ -35,6 +42,12 @@ _DEFAULT_INITIAL_STATE = np.array([
     -2.65743666e+00, 2.32046235e-01, 1.28079141e+00, 4.23344286e+00,
     6.94213238e+00, -1.15939497e+00, -5.23037351e-01, 1.54618811e+00,
     1.77863869e+00, 3.30139201e+00, 7.47769309e+00, -3.91312909e-01])
+
+
+#: 1/6 in float32: a CUDA device divides a tensor by a host scalar as a
+#: multiply by its reciprocal, and the CPU does the same here, so that the
+#: chaotic trajectory is the same bits on both
+_SIXTH = float(np.float32(1 / 6))
 
 
 def _lorenz_ode(y, eta, theta1, theta2, f):
@@ -52,7 +65,7 @@ def _rk4(y, time_step, eta, theta1, theta2, f):
     k2 = time_step * ode(y + k1 / 2)
     k3 = time_step * ode(y + k2 / 2)
     k4 = time_step * ode(y + k3)
-    return y + (k1 + 2 * k2 + 2 * k3 + k4) / 6
+    return y + (k1 + 2 * k2 + 2 * k3 + k4) * _SIXTH
 
 
 def forecast_lorenz_from_noise(theta1, theta2, es, f=10., phi=0.984,
@@ -121,26 +134,29 @@ def autocov(x):
                       * (b - torch.mean(b, dim=1, keepdim=True)), dim=(1, 2))
 
 
+@memoised
 def observed_data(true_params=None, seed_obs=None, n_obs=40, f=10.,
-                  phi=0.984, total_duration=4, n_timestep=160):
-    """The JAX package's observed trajectory for this setting (the default
-    initial state only)."""
-    return load_observed_setting(
-        _DATA, true_params=true_params or [2.0, 0.1], seed_obs=seed_obs,
-        n_obs=n_obs, f=float(f), phi=float(phi),
-        total_duration=float(total_duration), n_timestep=n_timestep)
+                  phi=0.984, total_duration=4, n_timestep=160,
+                  initial_state=None, device=None):
+    """The observed trajectory (n_timestep, n_obs), the JAX package's draw:
+    the closure noise ``normal(key(seed_obs or 0), (n_timestep - 1, 1,
+    n_obs))`` through :func:`forecast_lorenz_from_noise`, on ``device``
+    (None: the global backend's)."""
+    k = observed_key(seed_obs, device)
+    theta1, theta2 = true_values(true_params or [2.0, 0.1], k.device)
+    es = threefry.normal(k, (n_timestep - 1, 1, n_obs))
+    return first_row(forecast_lorenz_from_noise(
+        theta1, theta2, es, f, phi, initial_state, total_duration))
 
 
 def get_model(true_params=None, seed_obs=None, initial_state=None, n_obs=40,
               f=10., phi=0.984, total_duration=4, n_timestep=160):
     """Lorenz-96 closure-parameter inference model."""
-    if initial_state is not None:
-        raise ValueError("only the default initial state has stored "
-                         "observed data in the PyTorch port")
     y_obs = observed_data(true_params, seed_obs, n_obs, f, phi,
-                          total_duration, n_timestep)
-    simulator = partial(forecast_lorenz, f=f, n_obs=n_obs, phi=phi,
-                        total_duration=total_duration, n_timestep=n_timestep)
+                          total_duration, n_timestep, initial_state)
+    simulator = partial(forecast_lorenz, initial_state=initial_state, f=f,
+                        n_obs=n_obs, phi=phi, total_duration=total_duration,
+                        n_timestep=n_timestep)
     m = Model(name="lorenz")
     Prior("uniform", 0.5, 3., model=m, name="theta1")
     Prior("uniform", 0, 0.3, model=m, name="theta2")

@@ -3,11 +3,11 @@
 summaries -> euclidean distance.
 
 The observed series must be the JAX package's: the accuracy gate at
-``seed_obs=271`` was calibrated for that exact ``y``, which
-``jax.random.key(seed_obs)`` draws.  The port does not import JAX, so the
-series for ``seed_obs`` in {0, 4, 271} (n_obs=100, true parameters
-(0.6, 0.2)) is committed in ``data/ma2_observed.npz``; the tests check it
-against the JAX package's draw.
+``seed_obs=271`` was calibrated for that exact ``y``.  :func:`observed_data`
+draws its noise from the Threefry stream of ``key(seed_obs or 0)``, as
+``jax.random`` does, for any setting; ``data/ma2_observed.npz`` holds the
+JAX package's series for ``seed_obs`` in {0, 4, 271}, the arrays the
+generator is held to.
 """
 
 from __future__ import annotations
@@ -20,12 +20,22 @@ import torch
 
 from ..model.model import Distance, Model, Prior, Simulator, Summary
 from ..ops.distributions import Distribution, draw_device
-from ._observed import load_observed
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 
-__all__ = ["MA2", "autocov", "get_model", "observed_data", "CustomPrior1",
-           "CustomPrior2"]
+__all__ = ["MA2", "MA2_from_noise", "autocov", "get_model", "observed_data",
+           "CustomPrior1", "CustomPrior2"]
 
+#: the JAX package's series, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "ma2_observed.npz"
+
+
+def MA2_from_noise(t1, t2, w):
+    """x_i = w_i + t1 w_{i-1} + t2 w_{i-2} on the normals ``w`` (batch,
+    n_obs + 2); ``t1``/``t2`` are (batch,) tensors."""
+    t1 = torch.as_tensor(t1).reshape(-1, 1)
+    t2 = torch.as_tensor(t2).reshape(-1, 1)
+    return w[:, 2:] + t1 * w[:, 1:-1] + t2 * w[:, :-2]
 
 
 def MA2(t1, t2, n_obs=100, batch_size=1, generator=None):
@@ -34,11 +44,10 @@ def MA2(t1, t2, n_obs=100, batch_size=1, generator=None):
     Batched: ``t1``/``t2`` are (batch,) tensors; returns (batch, n_obs) on
     ``generator``'s device.
     """
-    t1 = torch.as_tensor(t1).reshape(-1, 1)
-    t2 = torch.as_tensor(t2).reshape(-1, 1)
+    t1 = torch.as_tensor(t1)
     w = torch.randn((batch_size, n_obs + 2), generator=generator,
                     device=t1.device)
-    return w[:, 2:] + t1 * w[:, 1:-1] + t2 * w[:, :-2]
+    return MA2_from_noise(t1, t2, w)
 
 
 def autocov(x, lag=1):
@@ -93,10 +102,15 @@ for _op in (MA2, autocov, CustomPrior1, CustomPrior2):
     _op.capturable = True
 
 
-def observed_data(n_obs=100, true_params=None, seed_obs=None):
-    """The JAX package's observed MA2 series for ``seed_obs`` (None means
-    0, as there); only the committed settings are available."""
-    return load_observed(_DATA, n_obs, 100, true_params, (.6, .2), seed_obs)
+@memoised
+def observed_data(n_obs=100, true_params=None, seed_obs=None, device=None):
+    """The observed MA2 series (n_obs,), the JAX package's draw: the
+    normals ``normal(key(seed_obs or 0), (1, n_obs + 2))`` through
+    :func:`MA2_from_noise`, on ``device`` (None: the global backend's)."""
+    k = observed_key(seed_obs, device)
+    t1, t2 = true_values(true_params or (.6, .2), k.device)
+    return first_row(MA2_from_noise(t1, t2,
+                                    threefry.normal(k, (1, n_obs + 2))))
 
 
 def get_model(n_obs=100, true_params=None, seed_obs=None):

@@ -3,8 +3,10 @@ reference ``elfi/examples/mg1.py``).
 
 The simulator is a draw (exponential arrivals, uniform service fractions)
 followed by the pure recursion :func:`MG1_from_noise`, an eager loop over
-the departures.  The observed series are the JAX package's
-(``data/mg1_observed.npz``)."""
+the departures.  The observed series are the JAX package's draws for any
+setting, from the Threefry streams of ``key(seed_obs or 0)``;
+``data/mg1_observed.npz`` holds the JAX package's series the generator is
+held to."""
 
 from __future__ import annotations
 
@@ -16,12 +18,14 @@ import torch
 
 from ..model.model import Distance, Model, Operation, Prior, Simulator, \
     Summary
-from ._observed import load_observed_setting
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 from ._stats import batch_param, quantiles as _quantiles
 
 __all__ = ["MG1", "MG1_from_noise", "get_model", "observed_data",
            "log_identity", "quantiles"]
 
+#: the JAX package's arrays, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "mg1_observed.npz"
 
 
@@ -63,10 +67,17 @@ def quantiles(x, q):
     return _quantiles(x, q).T
 
 
-def observed_data(n_obs=50, true_params=None, seed_obs=None):
-    """The JAX package's observed series for this setting."""
-    return load_observed_setting(_DATA, n_obs=n_obs, true_params=true_params
-                                 or [1., 5., 0.2], seed_obs=seed_obs)
+@memoised
+def observed_data(n_obs=50, true_params=None, seed_obs=None, device=None):
+    """The observed series (n_obs,), the JAX package's draw: with ``k1, k2
+    = split(key(seed_obs or 0))``, ``exponential(k1, (n_obs, 1))`` and
+    ``uniform(k2, (n_obs, 1))`` through :func:`MG1_from_noise`, on
+    ``device`` (None: the global backend's)."""
+    k1, k2 = threefry.split(observed_key(seed_obs, device))
+    params = true_values(true_params or [1., 5., 0.2], k1.device)
+    return first_row(MG1_from_noise(*params,
+                                    threefry.exponential(k1, (n_obs, 1)),
+                                    threefry.uniform(k2, (n_obs, 1))))
 
 
 def get_model(n_obs=50, true_params=None, seed_obs=None, n_quantiles=10):

@@ -6,7 +6,10 @@ The simulator is a draw (the log-volatility normals and the
 :class:`~elfi_tpu_torch.ops.distributions.levy_stable` angles and
 exponentials) followed by the pure transform :func:`svm_from_noise`; the
 AR(1) log-volatility is an eager loop over the time axis.  The observed
-series are the JAX package's (``data/stochastic_volatility_observed.npz``).
+series are the JAX package's draws for any setting, from the Threefry
+streams of ``key(seed_obs or 0)``;
+``data/stochastic_volatility_observed.npz`` holds the JAX package's series
+the generator is held to.
 """
 
 from __future__ import annotations
@@ -19,13 +22,15 @@ import torch
 from ..model.model import Constant, Distance, Model, Prior, Simulator, \
     Summary
 from ..ops.distributions import levy_stable
-from ._observed import load_observed_setting
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 from ._stats import batch_param, quantiles
 
 __all__ = ["log_vol", "shock_term", "log_vol_from_noise", "svm_from_noise",
            "alpha_stochastic_volatility_model", "get_model",
            "observed_data", "kurt", "skew"]
 
+#: the JAX package's arrays, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / \
     "stochastic_volatility_observed.npz"
 
@@ -110,16 +115,30 @@ def skew(x):
     return ((qs[2] - qs[1]) - (qs[1] - qs[0])) / (qs[2] - qs[0])
 
 
-def observed_data(n_obs=50, true_params=None, seed_obs=None):
-    """The JAX package's observed series for this setting."""
-    return load_observed_setting(_DATA, n_obs=n_obs, true_params=true_params
-                                 or [1.2, 0.5], seed_obs=seed_obs)
+#: the model's fixed arguments, constants of its graph
+FIXED = {"kappa": 1, "eta": 0, "mu": 0, "phi": 0.95, "sigma": 0.2}
+
+
+@memoised
+def observed_data(n_obs=50, true_params=None, seed_obs=None, device=None):
+    """The observed series (n_obs,), the JAX package's draw: with ``k1, k2
+    = split(key(seed_obs or 0))``, the log-volatility normals from
+    ``split(k1)`` (``(1,)`` and ``(n_obs - 1, 1)``) and the alpha-stable
+    ``(U, W)`` of ``k2`` (``(1, n_obs)``) through :func:`svm_from_noise`,
+    on ``device`` (None: the global backend's)."""
+    k1, k2 = threefry.split(observed_key(seed_obs, device))
+    alpha, beta = true_values(true_params or [1.2, 0.5], k1.device)
+    kz, kw = threefry.split(k1)
+    U, W = levy_stable.draw_from_key(k2, (1, n_obs))
+    return first_row(svm_from_noise(
+        alpha, beta, threefry.normal(kz, (1,)),
+        threefry.normal(kw, (n_obs - 1, 1)), U, W, **FIXED))
 
 
 def get_model(n_obs=50, true_params=None, seed_obs=None):
     """SVM inference model for (alpha, beta)."""
     y_obs = observed_data(n_obs, true_params, seed_obs)
-    fixed = {"kappa": 1, "eta": 0, "mu": 0, "phi": 0.95, "sigma": 0.2}
+    fixed = FIXED
     m = Model(name="a_svm")
     Prior("uniform", 0.5, 1.5, model=m, name="alpha")
     Prior("uniform", -1, 2, model=m, name="beta")

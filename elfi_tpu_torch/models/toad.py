@@ -7,8 +7,10 @@ step (:class:`~elfi_tpu_torch.ops.distributions.levy_stable`), a uniform
 refuge day in [0, i) and a ``torch.gather`` over the site history.  The
 day's draws come from :func:`toad_day_noise`, and the pure recursion
 :func:`toad_from_noise` takes them, so a test can feed it the JAX
-package's.  The observed data are the JAX package's
-(``data/toad_observed.npz``)."""
+package's.  The observed data are the JAX package's draws for any setting:
+:func:`observed_data` gives the day loop the draws of the JAX simulator's
+key tree at batch 1; ``data/toad_observed.npz`` holds the JAX package's
+positions the generator is held to."""
 
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ import torch
 
 from ..model.model import Distance, Model, Prior, Simulator, Summary
 from ..ops.distributions import levy_stable
-from ._observed import load_observed_setting
+from ..utils import threefry
+from ._observed import first_row, memoised, observed_key, true_values
 from ._stats import nanquantiles
 
 __all__ = ["toad", "toad_from_noise", "toad_day_noise", "compute_summaries",
            "obs_mat_to_deltax", "get_model", "observed_data"]
 
+#: the JAX package's positions, which the generator is held to
 _DATA = Path(__file__).resolve().parent / "data" / "toad_observed.npz"
 
 
@@ -95,11 +99,26 @@ def compute_summaries(X, lag, p=np.linspace(0, 1, 11), thd=10):
     return torch.nan_to_num(ssx, nan=torch.finfo(torch.float32).max).T
 
 
-def observed_data(true_params=None, seed_obs=None, n_toads=66, n_days=63):
-    """The JAX package's observed positions for this setting."""
-    return load_observed_setting(
-        _DATA, true_params=true_params or [1.7, 35.0, 0.6],
-        seed_obs=seed_obs, n_toads=n_toads, n_days=n_days)
+@memoised
+def observed_data(true_params=None, seed_obs=None, n_toads=66, n_days=63,
+                  device=None):
+    """The observed positions (n_days, n_toads), the JAX package's draw on
+    ``device`` (None: the global backend's): day i's key is ``split(
+    key(seed_obs or 0), n_days)[i]``, split in three for the return
+    uniforms, the alpha-stable ``(U, W)`` and ``randint(0, max(i, 1))``
+    of the refuge day, each (1, n_toads)."""
+    days = threefry.split(observed_key(seed_obs, device), n_days)
+    shape = (1, n_toads)
+
+    def day_noise(i):
+        k1, k2, k3 = threefry.split(days[i], 3)
+        U, W = levy_stable.draw_from_key(k2, shape)
+        return (threefry.uniform(k1, shape), U, W,
+                threefry.randint(k3, shape, 0, max(i, 1)))
+
+    alpha, gamma, p0 = true_values(true_params or [1.7, 35.0, 0.6],
+                                   days.device)
+    return first_row(toad_from_noise(alpha, gamma, p0, n_days, day_noise))
 
 
 def get_model(true_params=None, seed_obs=None, n_toads=66, n_days=63):

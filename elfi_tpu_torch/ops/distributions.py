@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils import to_numpy
+from ..utils import threefry, to_numpy
 from . import special
 
 __all__ = ["Distribution", "uniform", "norm", "truncnorm", "expon",
@@ -403,6 +403,14 @@ class levy_stable(Distribution):
         w = torch.empty(shape, device=device).exponential_(
             generator=generator)
         return u, w
+
+    @classmethod
+    def draw_from_key(cls, key, shape):
+        """``(U, W)`` of ``shape`` from the Threefry streams of ``key``'s
+        two halves, as the JAX package's ``rvs`` draws them."""
+        k1, k2 = threefry.split(key)
+        return (threefry.uniform(k1, shape, cls._U_LO, cls._U_HI),
+                threefry.exponential(k2, shape))
 
     @staticmethod
     def transform(U, W, alpha, beta=0.0, loc=0.0, scale=1.0):

@@ -170,6 +170,8 @@ def main(argv=None):
     from elfi_tpu_torch.utils.profiling import recorded
 
     device = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    # the models draw their observed data on the global backend's device
+    et.set_client("native", device=device)
     n_sim = 2**22 if args.quick else N_SIM
     points = [p for p in POINTS if p[1] <= 2**18] if args.quick else POINTS
     card = card_line() if cuda else "cpu (no device numbers)"

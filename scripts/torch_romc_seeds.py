@@ -46,6 +46,9 @@ def run_port(seeds, device):
     import torch
     import elfi_tpu_torch as et
     from elfi_tpu_torch.models import gnk
+    if device is not None:
+        # the model draws its observed data on the global backend's device
+        et.set_client("native", device=device)
     m = gnk.get_model(n_obs=50, seed_obs=1)
     romc = et.ROMC(m["d"], bounds=[(0, 10)] * 4, seed=seeds[0],
                    device=device)

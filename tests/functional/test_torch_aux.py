@@ -268,7 +268,11 @@ def no_cuda(monkeypatch):
 def _entry_points():
     from elfi_tpu_torch.methods.romc import RegionConstructor
     from elfi_tpu_torch.ops import distributions as dists
+    # the model draws its observed data on the global backend's device:
+    # the CPU here, then the backend is reset for the call that must raise
+    et.set_client("native", device="cpu")
     m = ma2.get_model(seed_obs=4)
+    et.reset_client()
     yield "RegionConstructor", lambda: RegionConstructor(
         None, lambda x: x.sum(-1), 2, 0.1)
     yield "TwoStageSelection", lambda: et.TwoStageSelection(

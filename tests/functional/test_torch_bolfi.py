@@ -28,6 +28,9 @@ def _native_cpu_client():
 
 @pytest.fixture(scope="module")
 def ma2_log():
+    # the model draws its observed data on the global backend's device,
+    # and a module's fixture runs before the per-test CPU client is set
+    et.set_client("native", device="cpu")
     m = ma2.get_model(seed_obs=4)
     et.Operation(torch.log, m["d"], model=m, name="log_d")
     return m

@@ -179,6 +179,9 @@ def _gnk_bolfire(seed=5, **kw):
 
 @pytest.fixture(scope="module", params=[True, False], ids=["fused", "host"])
 def gnk_fitted(request):
+    # the model draws its observed data on the global backend's device,
+    # and a module's fixture runs before the per-test CPU client is set
+    et.set_client("native", device="cpu")
     bolfire = _gnk_bolfire()
     assert bolfire._fused_eligible()
     bolfire.fit(n_evidence=12, bar=False, fused=request.param)
@@ -248,6 +251,9 @@ def test_fewer_rounds_than_initial_evidence_run_on_the_host():
 def ma2_fitted():
     """The JAX package's MA2 point: a triangle prior, so the fused fit adds
     the prior cost and draws its initial thetas from the prior program."""
+    # the model draws its observed data on the global backend's device,
+    # and a module's fixture runs before the per-test CPU client is set
+    et.set_client("native", device="cpu")
     m = ma2.get_model(seed_obs=4)
     bolfire = et.BOLFIRE(m, n_training_data=100, batch_size=100,
                          bounds=MA2_BOUNDS, n_initial_evidence=5,

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import elfi_tpu_torch as et
 from elfi_tpu.models import ma2 as jax_ma2
 from elfi_tpu_torch.models import ma2, ma2_kernel
+from elfi_tpu_torch.models._observed import load_observed
 
 torch.set_num_threads(1)
 
@@ -127,7 +128,7 @@ def test_committed_observed_data_is_the_jax_draw(seed_obs):
     y = np.asarray(jax_ma2.MA2(jnp.asarray([.6]), jnp.asarray([.2]),
                                n_obs=100, batch_size=1,
                                key=jax.random.key(seed_obs)))[0]
-    stored = ma2.observed_data(seed_obs=seed_obs)
+    stored = load_observed(ma2._DATA, 100, 100, None, (.6, .2), seed_obs)
     np.testing.assert_array_equal(stored, y)
     assert stored.dtype == y.dtype
     m_t, m_j = ma2.get_model(seed_obs=seed_obs), \
@@ -136,12 +137,17 @@ def test_committed_observed_data_is_the_jax_draw(seed_obs):
 
 
 def test_unstored_observed_data_raises():
-    with pytest.raises(ValueError, match="stored"):
-        ma2.get_model(seed_obs=5)
-    with pytest.raises(ValueError):
-        ma2.get_model(n_obs=50)
-    with pytest.raises(ValueError):
-        ma2_kernel.get_model(true_params=[0.5, 0.1])
+    """The settings no file holds, once refused, give the JAX package's
+    observed data (MA2's draw is bit for bit; the kernel graph's
+    autocovariances within rtol 1e-6)."""
+    from elfi_tpu.models import ma2_pallas
+    for kw in (dict(seed_obs=5), dict(n_obs=50)):
+        np.testing.assert_array_equal(ma2.get_model(**kw).observed["MA2"],
+                                      jax_ma2.get_model(**kw).observed["MA2"])
+    kw = dict(true_params=[0.5, 0.1])
+    op_t = ma2_kernel.get_model(**kw).dag.get_state("d")["op"]
+    op_j = ma2_pallas.get_model(**kw).dag.get_state("d")["op"]
+    np.testing.assert_allclose(op_t.obs, op_j.obs, rtol=1e-6)
 
 
 def test_kernel_graph_observed_autocovs_equal_jax():

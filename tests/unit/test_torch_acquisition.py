@@ -79,6 +79,9 @@ def pair():
     pgp = gp_from_numpy(jgp.X, jgp.Y, jgp.params, jgp.bounds, device=CPU,
                         prior_shapes=jgp._prior_shapes)
     pgp.parameter_names = ["t1", "t2"]
+    # the model draws its observed data on the global backend's device,
+    # and a module's fixture runs before the per-test CPU client is set
+    et.set_client("native", device="cpu")
     pprior = et.ModelPrior(ma2.get_model(seed_obs=4), device=CPU)
     return jgp, jprior, pgp, pprior
 

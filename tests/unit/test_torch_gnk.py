@@ -16,6 +16,7 @@ from elfi_tpu.models import gnk as jax_gnk
 from elfi_tpu.models import gnk_pallas as jax_gnk_pallas
 import elfi_tpu_torch as et
 from elfi_tpu_torch.models import bignk, gnk, gnk_kernel
+from elfi_tpu_torch.models._observed import load_observed
 from elfi_tpu_torch.ops.kernels.gnk import gnk_distance_reference
 
 torch.set_num_threads(1)
@@ -167,23 +168,30 @@ def test_committed_gnk_observed_data_is_the_jax_draw(seed_obs):
                                  for v in (3, 1, 2, .5)), n_obs=50,
                                batch_size=1,
                                key=jax.random.key(seed_obs)))[0]
-    np.testing.assert_array_equal(gnk.observed_data(seed_obs=seed_obs), y)
-    np.testing.assert_array_equal(m_t.observed["GNK"], m_j.observed["GNK"])
+    np.testing.assert_array_equal(
+        load_observed(gnk._DATA, 50, 50, None, gnk.TRUE_PARAMS, seed_obs), y)
+    # the generated sample: see test_torch_zoo_observed.py for its tolerance
+    np.testing.assert_allclose(m_t.observed["GNK"], m_j.observed["GNK"],
+                               rtol=1e-6)
     assert m_t.observed["GNK"].dtype == m_j.observed["GNK"].dtype
     assert _graph(m_t) == _graph(m_j)
     k_t = gnk_kernel.get_model(seed_obs=seed_obs)
     k_j = jax_gnk_pallas.get_model(seed_obs=seed_obs)
     assert _graph(k_t) == _graph(k_j)
-    np.testing.assert_array_equal(k_t.dag.get_state("d")["op"].obs,
-                                  k_j.dag.get_state("d")["op"].obs)
+    np.testing.assert_allclose(k_t.dag.get_state("d")["op"].obs,
+                               k_j.dag.get_state("d")["op"].obs, rtol=1e-6)
 
 
 @pytest.mark.parametrize("seed_obs", [0, 3])
 def test_committed_bignk_observed_data_is_the_jax_draw(seed_obs):
     m_t = bignk.get_model(seed_obs=seed_obs)
     m_j = jax_bignk.get_model(seed_obs=seed_obs)
-    np.testing.assert_array_equal(m_t.observed["BiGNK"],
-                                  m_j.observed["BiGNK"])
+    np.testing.assert_array_equal(
+        load_observed(bignk._DATA, 150, 150, None, bignk.TRUE_PARAMS,
+                      seed_obs), m_j.observed["BiGNK"])
+    # the generated sample: see test_torch_zoo_observed.py for its tolerance
+    np.testing.assert_allclose(m_t.observed["BiGNK"], m_j.observed["BiGNK"],
+                               rtol=1e-6)
     assert m_t.observed["BiGNK"].shape == (150, 2)
     assert _graph(m_t) == _graph(m_j)
 
@@ -194,15 +202,27 @@ def test_seed_selects_the_observed_data_as_in_jax():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: gnk.get_model(seed_obs=4),
-    lambda: gnk.get_model(n_obs=40),
-    lambda: gnk.get_model(true_params=[3, 1, 2, .4]),
-    lambda: gnk_kernel.get_model(seed_obs=7),
-    lambda: bignk.get_model(seed_obs=1),
-    lambda: bignk.get_model(n_obs=100)])
+    ("gnk", dict(seed_obs=4)),
+    ("gnk", dict(n_obs=40)),
+    ("gnk", dict(true_params=[3, 1, 2, .4])),
+    ("gnk_kernel", dict(seed_obs=7)),
+    ("bignk", dict(seed_obs=1)),
+    ("bignk", dict(n_obs=100))])
 def test_unstored_observed_data_raises(call):
-    with pytest.raises(ValueError):
-        call()
+    """The settings no file holds, once refused, give the JAX package's
+    observed data (rtol 1e-6, as the other linear models)."""
+    name, kw = call
+    if name == "gnk_kernel":
+        got = gnk_kernel.get_model(**kw).dag.get_state("d")["op"].obs
+        want = jax_gnk_pallas.get_model(**kw).dag.get_state("d")["op"].obs
+    else:
+        node = {"gnk": "GNK", "bignk": "BiGNK"}[name]
+        port, jax_mod = {"gnk": (gnk, jax_gnk),
+                         "bignk": (bignk, jax_bignk)}[name]
+        got = port.get_model(**kw).observed[node]
+        want = jax_mod.get_model(**kw).observed[node]
+    assert got.shape == np.shape(want)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 def test_bignk_shapes_and_correlation():

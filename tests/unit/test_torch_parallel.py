@@ -34,7 +34,11 @@ def no_cuda(monkeypatch):
 def _entry_points():
     from elfi_tpu_torch.methods.density_ratio_estimation import \
         DensityRatioEstimation
+    # the model draws its observed data on the global backend's device:
+    # the CPU here, then the backend is reset for the call that must raise
+    et.set_client("native", device="cpu")
     m = ma2.get_model(seed_obs=4)
+    et.reset_client()
     yield "Rejection", lambda: et.Rejection(m["d"], batch_size=8).sample(
         10, n_sim=16, bar=False)
     yield "SMC", lambda: et.SMC(m["d"], batch_size=8).sample(
@@ -86,7 +90,11 @@ def test_entry_point_without_a_device_raises_without_cuda(no_cuda, entry):
 
 def _lower_layers():
     from elfi_tpu_torch.compile.compiler import compile_program
+    # the model draws its observed data on the global backend's device:
+    # the CPU here, then the backend is reset for the calls under test
+    et.set_client("native", device="cpu")
     m = ma2.get_model(seed_obs=4)
+    et.reset_client()
     ctx = ComputationContext(batch_size=8, seed=1)
     yield "compile_program", lambda **kw: compile_program(m, ("d",), **kw)
     yield "BatchHandler", lambda **kw: BatchHandler(m, ctx, ("d",), **kw)
@@ -103,7 +111,12 @@ def test_lower_layers_take_the_device_they_are_given(no_cuda, layer):
 
 
 def test_cpu_asked_for_runs_without_cuda(no_cuda):
+    # the model draws its observed data on the global backend's device:
+    # the CPU here, then the backend is reset, so that generate has only
+    # its own device= to go by
+    et.set_client("native", device="cpu")
     m = ma2.get_model(seed_obs=4)
+    et.reset_client()
     assert m.generate(8, outputs="d", device="cpu")["d"].shape == (8,)
     et.set_client("native", device="cpu")
     res = et.Rejection(m["d"], batch_size=8, seed=1).sample(4, n_sim=16,

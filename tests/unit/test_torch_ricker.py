@@ -94,8 +94,10 @@ def test_observed_series_are_the_jax_draws():
         n_obs=50, batch_size=1, key=jax.random.key(4))
     np.testing.assert_array_equal(tricker.bench_observed(),
                                   np.asarray(bench)[0])
-    with pytest.raises(ValueError):
-        tricker.get_model(seed_obs=5)
+    # a seed no file holds, once refused, gives the JAX package's series
+    np.testing.assert_array_equal(
+        tricker.get_model(seed_obs=5)["Ricker"].observed,
+        np.asarray(jricker.get_model(seed_obs=5)["Ricker"].observed))
 
 
 def test_stochastic_ricker_counts_match_jax():

@@ -403,14 +403,15 @@ def test_committed_gauss_observations_are_the_jax_draw(kw):
 
 
 def test_unstored_gauss_observations_raise():
-    with pytest.raises(ValueError, match="stored"):
-        gauss.get_model(seed_obs=5)
-    with pytest.raises(ValueError):
-        gauss.get_model(n_obs=20)
-    with pytest.raises(ValueError):
-        gauss.get_model(nd_mean=True, cov_matrix=np.eye(2))   # [4, 4]
-    with pytest.raises(ValueError, match="eye"):
-        gauss.get_model(**{**GAUSS2D, "cov_matrix": 2 * np.eye(2)})
+    """The settings no file holds, once refused, give the JAX package's
+    observed sample (rtol 1e-6), the n-D model with any SPD covariance."""
+    for kw in (dict(seed_obs=5), dict(n_obs=20),
+               dict(nd_mean=True, cov_matrix=np.eye(2)),      # [4, 4]
+               {**GAUSS2D, "cov_matrix": [[2., .3], [.3, .5]]}):
+        want = jax_gauss.get_model(**kw).observed["gauss"]
+        got = gauss.get_model(**kw).observed["gauss"]
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 def test_gauss_summaries_and_distance_equal_jax():

@@ -419,20 +419,71 @@ _OBSERVED = [
     ("daycare", dict(), "DCC")]
 
 
+#: the settings that key each model's committed arrays
+_DEFAULTS = {
+    "ar1": dict(n_obs=200, true_params=[.9]),
+    "arch": dict(n_obs=100, true_params=[0.3, 0.7]),
+    "mg1": dict(n_obs=50, true_params=[1., 5., 0.2]),
+    "stochastic_volatility": dict(n_obs=50, true_params=[1.2, .5]),
+    "lorenz": dict(true_params=[2.0, 0.1], n_obs=40, f=10., phi=0.984,
+                   total_duration=4.0, n_timestep=160),
+    "toad": dict(true_params=[1.7, 35.0, 0.6], n_toads=66, n_days=63),
+    "lotka_volterra": dict(n_obs=50, time_end=30.,
+                           true_params=[1.0, 0.005, 0.6, 50, 100, 0.]),
+    "daycare": dict(true_params=[3.6, 0.6, 0.1], n_dcc=29, n_ind=53,
+                    n_strains=33, n_obs=36, time_end=10.)}
+
+
+#: how close the port's generated data come to the JAX package's
+#: (test_torch_zoo_observed.py): 0 is equality, a float an rtol of the
+#: array's largest magnitude, ("atol", x) an absolute tolerance
+_GENERATED_TOL = {"ar1": 1e-6, "arch": 1e-5, "mg1": 1e-5,
+                  "stochastic_volatility": 1e-5, "toad": 1e-5,
+                  "lorenz": ("atol", 1e-2), "lotka_volterra": 0,
+                  "daycare": 0}
+
+
 @pytest.mark.parametrize("name,kw,node", _OBSERVED)
 def test_committed_observed_data_equal_the_jax_draws(name, kw, node):
+    """The committed arrays are the JAX package's draws, exactly, and the
+    port's ``get_model`` generates them: equal for the integer states
+    (daycare, Lotka-Volterra), within the stated tolerance for the rest."""
     import importlib
+    from elfi_tpu_torch.models._observed import load_observed_setting
     jm = importlib.import_module(f"elfi_tpu.models.{name}").get_model(**kw)
-    tm = importlib.import_module(f"elfi_tpu_torch.models.{name}").get_model(
-        **kw)
-    np.testing.assert_array_equal(tm.observed[node], jm.observed[node])
+    tmod = importlib.import_module(f"elfi_tpu_torch.models.{name}")
+    setting = {**_DEFAULTS[name], **kw}
+    setting["seed_obs"] = setting.get("seed_obs")
+    for k in ("time_end", "f", "phi", "total_duration"):
+        if k in setting:
+            setting[k] = float(setting[k])
+    want = np.asarray(jm.observed[node])
+    np.testing.assert_array_equal(load_observed_setting(tmod._DATA,
+                                                        **setting), want)
+    got = tmod.get_model(**kw).observed[node]
+    tol = _GENERATED_TOL[name]
+    if tol == 0:
+        np.testing.assert_array_equal(got, want)
+    elif isinstance(tol, tuple):
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol[1])
+    else:
+        np.testing.assert_allclose(got, want, rtol=tol,
+                                   atol=tol * np.abs(want).max())
 
 
 def test_unstored_observed_setting_raises():
-    with pytest.raises(ValueError, match="no stored observed data"):
-        tar1.get_model(n_obs=150)
-    with pytest.raises(ValueError, match="no stored observed data"):
-        tdaycare.get_model(seed_obs=7)
+    """Settings no file holds, once refused, give the JAX package's data:
+    AR(1) at another length (rtol 1e-6 of the series' scale), daycare at
+    29 x 53 x 33 under another seed (the states equal)."""
+    from elfi_tpu.models import ar1 as jar1
+    from elfi_tpu.models import daycare as jdaycare
+    want = jar1.get_model(n_obs=150).observed["AR1"]
+    got = tar1.get_model(n_obs=150).observed["AR1"]
+    np.testing.assert_allclose(got, want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+    np.testing.assert_array_equal(
+        tdaycare.get_model(seed_obs=7).observed["DCC"],
+        jdaycare.get_model(seed_obs=7).observed["DCC"])
 
 
 def test_bdm_clusters_equal_jax_for_the_same_seed(tmp_path):

@@ -1,7 +1,9 @@
 """The host executor and the zoo's event loops on the card: a CUDA
 program's host nodes get numpy copies of their parents (moved off the card)
 and their outputs come back to the card; daycare and Lotka-Volterra on the
-card equal the CPU on the same injected draws.
+card equal the CPU on the same injected draws; XLA's order of summation
+(``utils/xla_math.py``) holds on the card, and daycare's observed states
+generated there are the JAX package's committed array.
 
 Every test needs a CUDA device and skips without one.  The file does not
 import JAX, so on a machine with a card
@@ -19,6 +21,7 @@ import torch
 import elfi_tpu_torch as et
 from elfi_tpu_torch.compile.compiler import compile_program
 from elfi_tpu_torch.models import daycare, lotka_volterra
+from elfi_tpu_torch.utils import xla_math
 
 torch.set_num_threads(1)
 
@@ -143,3 +146,29 @@ def test_zoo_simulators_run_on_the_card(cuda):
         res = et.Rejection(m["d"], batch_size=512, seed=3, device=cuda) \
             .sample(16, n_sim=1024, bar=False)
         assert np.all(np.isfinite(res.samples_array))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim", [
+    ((459, 116), 0), ((29, 4, 459), 2), ((2, 29, 33, 27), 3), ((1749,), 0),
+    ((1, 1749), 1)])
+def test_running_sums_on_the_card_are_in_order(cuda, shape, dim):
+    """Each running sum is taken in index order, one rounding an add, as
+    numpy's float32 accumulate takes it (torch's own CUDA scan of an
+    innermost dimension is a tree)."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(5)) * 0.37
+    want = np.add.accumulate(x.numpy(), axis=dim)
+    got = xla_math.running_sum(x.to(cuda), dim)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_daycare_observed_states_on_the_card_are_the_jax_array(cuda):
+    from elfi_tpu_torch.models._observed import load_observed_setting
+    want = load_observed_setting(
+        daycare._DATA, true_params=[3.6, 0.6, 0.1], n_dcc=29, n_ind=53,
+        n_strains=33, n_obs=36, time_end=10., seed_obs=None)
+    got = daycare.observed_data(device=cuda)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, daycare.observed_data(device="cpu"))
