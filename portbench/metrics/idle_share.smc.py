@@ -1,0 +1,8 @@
+"""idle_share.smc (%, device trace): the share of the traced window in
+which no operation ran on the card."""
+
+from portbench.harness.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)

@@ -1,0 +1,11 @@
+"""k1_roofline (%, device trace): the least time of a batch's
+distances (the configuration's ``distance_ops`` and ``distance_bytes``)
+over the card's time per launch of the distance kernel K1."""
+
+from portbench.harness.readers import K1, roofline
+
+
+def read(run):
+    b = run.traffic["batch_size"]
+    return roofline(run, K1, run.counts.distance_ops(run.config) * b,
+                    run.counts.distance_bytes(run.config, b))

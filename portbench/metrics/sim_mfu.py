@@ -1,0 +1,12 @@
+"""sim_mfu (%, host clock and counts): the model's float operations a
+simulation (``counts.<config>.sim_ops``) times the traced window's
+simulations a second, over the card's float32 peak."""
+
+from portbench.counts import peaks
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    rate = run.sims / run.window_s
+    return 100.0 * run.counts.sim_ops(run.config) * rate / peaks.FP32_FLOPS
