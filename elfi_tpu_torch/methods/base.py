@@ -17,6 +17,7 @@ from ..compile.compiler import compile_program
 from ..model.model import ComputationContext, Model, NodeReference
 from ..parallel.backends import get_client, resolve_device
 from ..parallel.batches import BatchHandler
+from ..utils.profiling import annotate
 from .utils import arr2d_to_batch, batch_to_arr2d
 
 __all__ = ["ParameterInference", "Sampler", "ModelBased"]
@@ -37,25 +38,26 @@ class ParameterInference:
 
     def __init__(self, model, output_names, batch_size=1, seed=None,
                  pool=None, max_parallel_batches=None, device=None):
-        model = model.model if isinstance(model, NodeReference) else model
-        if not model.parameter_names:
-            raise ValueError(f"Model {model.name} defines no parameters")
+        with annotate("elfi.sampler.init"):
+            model = model.model if isinstance(model, NodeReference) else model
+            if not model.parameter_names:
+                raise ValueError(f"Model {model.name} defines no parameters")
 
-        self.model = model.copy()
-        self.output_names = self._check_outputs(output_names)
-        self.client = get_client()
-        self.device = resolve_device(device)
-        self.computation_context = ComputationContext(batch_size=batch_size,
-                                                      seed=seed, pool=pool)
-        self.batches = BatchHandler(self.model,
-                                    context=self.computation_context,
-                                    output_names=self.output_names,
-                                    client=self.client, device=self.device)
-        self.max_parallel_batches = max_parallel_batches or \
-            max(1, self.client.num_cores)
-        self.state = dict(n_sim=0, n_batches=0)
-        self.objective = dict()
-        self.bar = True
+            self.model = model.copy()
+            self.output_names = self._check_outputs(output_names)
+            self.client = get_client()
+            self.device = resolve_device(device)
+            self.computation_context = ComputationContext(
+                batch_size=batch_size, seed=seed, pool=pool)
+            self.batches = BatchHandler(self.model,
+                                        context=self.computation_context,
+                                        output_names=self.output_names,
+                                        client=self.client, device=self.device)
+            self.max_parallel_batches = max_parallel_batches or \
+                max(1, self.client.num_cores)
+            self.state = dict(n_sim=0, n_batches=0)
+            self.objective = dict()
+            self.bar = True
 
     # -- properties ----------------------------------------------------------
     @property

@@ -33,6 +33,7 @@ from ..model.model import AdaptiveDistance
 from ..ops import topk
 from ..parallel.backends import NativeBackend, ShardedBackend
 from ..utils import capture, get_sub_seed
+from ..utils.profiling import annotate
 from ..utils.rng import batch_generator, fold_in
 from .base import Sampler, _ProgressBar
 from .results import Sample, SmcSample
@@ -264,52 +265,56 @@ class _ChunkLoop:
         """Queue this run's batches ``start .. start + length - 1`` and
         their merges; with ``read``, return the rows they accepted (a host
         read), else 0."""
-        i0 = self.start_index + start
-        graph = (self.captured and self.unroll is not None
-                 and length == _FUSED_CHUNK and not self.eager_proposals)
-        if not graph:
-            parts, accs, _ = self._body(self.parts, i0, length, False)
-            self.merged = self._plan(i0, length)[1]
-            self.parts = parts
-            return sum(int(torch.stack(a).sum()) for a in accs if a) \
-                if read else 0
-        plan, merged = self._plan(i0, length)
-        masked = self.spec is not None
-        # the first chunk allocates the buffers inside its graph
-        state = self.parts[0] or {}
-        key = ("chunk", self.fns[0], self.B, self.n, self.disc, plan,
-               tuple(self.thrs[0].shape),
-               (self.spec.graph_key, _REDRAW_ROUNDS) if masked else None,
-               tuple((k, tuple(v.shape), v.dtype) for k, v in state.items()))
+        with annotate("elfi.chunk"):
+            i0 = self.start_index + start
+            graph = (self.captured and self.unroll is not None
+                     and length == _FUSED_CHUNK and not self.eager_proposals)
+            if not graph:
+                parts, accs, _ = self._body(self.parts, i0, length, False)
+                self.merged = self._plan(i0, length)[1]
+                self.parts = parts
+                return _accepted(accs) if read else 0
+            plan, merged = self._plan(i0, length)
+            masked = self.spec is not None
+            # the first chunk allocates the buffers inside its graph
+            state = self.parts[0] or {}
+            key = ("chunk", self.fns[0], self.B, self.n, self.disc, plan,
+                   tuple(self.thrs[0].shape),
+                   (self.spec.graph_key, _REDRAW_ROUNDS) if masked else None,
+                   tuple((k, tuple(v.shape), v.dtype)
+                         for k, v in state.items()))
 
-        def fn(state, i0):
-            parts, accs, oks = self._body([state or None], i0, length,
-                                          masked)
-            bad = (~torch.stack(oks)).sum() if oks else \
-                torch.zeros((), dtype=torch.int64, device=self.devices[0])
-            return parts[0], torch.stack([torch.stack(accs[0]).sum(), bad])
+            def fn(state, i0):
+                parts, accs, oks = self._body([state or None], i0, length,
+                                              masked)
+                bad = (~torch.stack(oks)).sum() if oks else torch.zeros(
+                    (), dtype=torch.int64, device=self.devices[0])
+                return parts[0], torch.stack([torch.stack(accs[0]).sum(),
+                                              bad])
 
-        bases = {"node": self.seed}
-        if masked:
-            bases["batch"] = self.spec.key
-        new, extra = self.replays(key, state, fn, bases, i0,
-                                  self.devices[0], snapshot=masked)
-        stat, before = extra if masked else (extra, None)
-        self.parts = [new]
-        self.merged = merged
-        if not (read or masked):
-            return 0
-        accepted, bad = stat.tolist()
-        if bad:
-            # a proposal needed more redraw rounds than the graph holds:
-            # the chunk again, eagerly, from the state it started from
-            parts, accs, _ = self._body([dict(before) or None], i0, length,
-                                        False)
-            self.parts = parts
-            self.redone += 1
-            self.eager_proposals = True
-            accepted = int(torch.stack(accs[0]).sum())
-        return accepted if read else 0
+            bases = {"node": self.seed}
+            if masked:
+                bases["batch"] = self.spec.key
+            new, extra = self.replays(key, state, fn, bases, i0,
+                                      self.devices[0], snapshot=masked)
+            stat, before = extra if masked else (extra, None)
+            self.parts = [new]
+            self.merged = merged
+            if not (read or masked):
+                return 0
+            with annotate("elfi.host_read"):
+                accepted, bad = stat.tolist()
+            if bad:
+                # a proposal needed more redraw rounds than the graph holds:
+                # the chunk again, eagerly, from the state it started from
+                with annotate("elfi.chunk.redo"):
+                    parts, accs, _ = self._body([dict(before) or None], i0,
+                                                length, False)
+                    self.parts = parts
+                    self.redone += 1
+                    self.eager_proposals = True
+                    accepted = _accepted(accs)
+            return accepted if read else 0
 
     def final_parts(self):
         """The buffers of every device; a graph's static buffers are
@@ -318,6 +323,13 @@ class _ChunkLoop:
         if self.captured:
             parts = [{k: v.clone() for k, v in p.items()} for p in parts]
         return parts
+
+
+def _accepted(accs):
+    """The rows accepted, from each device's acceptance counts of a chunk:
+    a host read."""
+    with annotate("elfi.host_read"):
+        return sum(int(torch.stack(a).sum()) for a in accs if a)
 
 
 def _float32_threshold(t, device):
@@ -412,8 +424,9 @@ class Rejection(Sampler):
             raise ValueError("Nothing to extract")
         if self.adaptive:
             self._update_distances()
-        outputs = {k: v.cpu().numpy()
-                   for k, v in self.state["samples"].items() if k != "__key"}
+        with annotate("elfi.host_read"):
+            outputs = {k: v.cpu().numpy() for k, v in
+                       self.state["samples"].items() if k != "__key"}
         self._update_state_meta(outputs)
         return Sample(outputs=outputs, **self._extract_result_kwargs())
 
@@ -457,29 +470,30 @@ class Rejection(Sampler):
         the host between batches, and a pool stores and replays batch by
         batch, so either runs batch at a time.
         """
-        self.bar = bar
-        eligible = (self.pool is None and not self.adaptive
-                    and isinstance(self.client, (NativeBackend,
-                                                 ShardedBackend))
-                    and not kwargs)
-        if fused is None:
-            fused = eligible
-        if fused and not eligible:
-            raise ValueError("fused=True requires: no pool, no adaptive "
-                             "distance, native or sharded backend")
-        self.set_objective(n_samples, threshold=threshold, quantile=quantile,
-                           n_sim=n_sim)
-        prog = compile_program(self.model, tuple(self.output_names),
-                               device=self.device)
-        if fused and prog.host:
-            fused = False
-        if not fused:
-            return self.infer(n_samples, threshold=threshold,
-                              quantile=quantile, n_sim=n_sim, bar=bar,
-                              **kwargs)
-        self._run_fused(prog, threshold)
-        self.batches.reset()
-        return self.extract_result()
+        with annotate("elfi.sample"):
+            self.bar = bar
+            eligible = (self.pool is None and not self.adaptive
+                        and isinstance(self.client, (NativeBackend,
+                                                     ShardedBackend))
+                        and not kwargs)
+            if fused is None:
+                fused = eligible
+            if fused and not eligible:
+                raise ValueError("fused=True requires: no pool, no adaptive "
+                                 "distance, native or sharded backend")
+            self.set_objective(n_samples, threshold=threshold,
+                               quantile=quantile, n_sim=n_sim)
+            prog = compile_program(self.model, tuple(self.output_names),
+                                   device=self.device)
+            if fused and prog.host:
+                fused = False
+            if not fused:
+                return self.infer(n_samples, threshold=threshold,
+                                  quantile=quantile, n_sim=n_sim, bar=bar,
+                                  **kwargs)
+            self._run_fused(prog, threshold)
+            self.batches.reset()
+            return self.extract_result()
 
     def _run_fused(self, prog, threshold, seed=None, start_index=0,
                    overrides_spec=None):
@@ -635,10 +649,12 @@ class _GMProposals:
         return {p: params[:, j] for j, p in enumerate(self.pnames)}
 
     def __call__(self, batch_index):
-        return self._columns(GMDistribution.rvs(
-            self.proposal, size=self.batch_size,
-            prior_logpdf=self.prior_logpdf,
-            generator=batch_generator(self.key, batch_index, self.device)))
+        with annotate("elfi.proposal"):
+            return self._columns(GMDistribution.rvs(
+                self.proposal, size=self.batch_size,
+                prior_logpdf=self.prior_logpdf,
+                generator=batch_generator(self.key, batch_index,
+                                          self.device)))
 
     def masked(self, batch_index, rounds):
         """(the proposals, a 0-d flag that every row is in the prior's
@@ -683,14 +699,15 @@ class SMC(Sampler):
         fused loop stops at chunk granularity once ``n_samples`` are
         accepted, the other at its dynamic batch estimate).
         """
-        self.bar = bar
-        fused, prog = self._resolve_fused(fused, kwargs)
-        if not fused:
-            return super().sample(n_samples, thresholds=thresholds,
-                                  quantiles=quantiles, bar=bar, **kwargs)
-        return self._sample_fused(
-            n_samples, dict(thresholds=thresholds, quantiles=quantiles),
-            prog)
+        with annotate("elfi.sample"):
+            self.bar = bar
+            fused, prog = self._resolve_fused(fused, kwargs)
+            if not fused:
+                return super().sample(n_samples, thresholds=thresholds,
+                                      quantiles=quantiles, bar=bar, **kwargs)
+            return self._sample_fused(
+                n_samples, dict(thresholds=thresholds, quantiles=quantiles),
+                prog)
 
     # adaptive DISTANCES need per-batch host updates (never fused);
     # adaptive thresholds only do host work BETWEEN rounds (fusable)
@@ -735,10 +752,11 @@ class SMC(Sampler):
             rej = self._rejection
             rej.bar = False
             rnd = self.state["round"]
-            rej._run_fused(prog if rnd == 0 else prog_prop,
-                           rej.objective.get("threshold"),
-                           seed=self.seed, start_index=start,
-                           overrides_spec=self._propose if rnd else None)
+            with annotate("elfi.smc.round"):
+                rej._run_fused(prog if rnd == 0 else prog_prop,
+                               rej.objective.get("threshold"),
+                               seed=self.seed, start_index=start,
+                               overrides_spec=self._propose if rnd else None)
             start += rej.state["n_batches"]
             self.state["redone_chunks"] = (self.state.get("redone_chunks", 0)
                                            + rej.state["redone_chunks"])
@@ -798,19 +816,20 @@ class SMC(Sampler):
         """Enter round ``state['round']``: build its internal Rejection and
         give it the round's acceptance rule (resolving a scheduled quantile
         into a concrete threshold against the previous population)."""
-        r = self.state["round"]
-        self._spawn_round_rejection(r)
-        q = self.schedule.quantiles[r]
-        if r == 0 and q is not None:
-            # no population to take a quantile of yet
-            self._rejection.set_objective(self.objective["n_samples"],
-                                          quantile=q)
-            return
-        if q is not None:
-            self.schedule.thresholds[r] = self._quantile_threshold(r, q)
-        self._rejection.set_objective(
-            self.objective["n_samples"],
-            threshold=self.current_population_threshold)
+        with annotate("elfi.smc.next_round"):
+            r = self.state["round"]
+            self._spawn_round_rejection(r)
+            q = self.schedule.quantiles[r]
+            if r == 0 and q is not None:
+                # no population to take a quantile of yet
+                self._rejection.set_objective(self.objective["n_samples"],
+                                              quantile=q)
+                return
+            if q is not None:
+                self.schedule.thresholds[r] = self._quantile_threshold(r, q)
+            self._rejection.set_objective(
+                self.objective["n_samples"],
+                threshold=self.current_population_threshold)
 
     def _quantile_threshold(self, r, q):
         """Threshold for round ``r`` = weighted q-quantile of round
@@ -840,13 +859,14 @@ class SMC(Sampler):
             device=self.device)
 
     def _extract_population(self):
-        sample = self._rejection.extract_result()
-        sample.method_name = "Rejection within SMC-ABC"
-        theta, w, cov = self._weigh_population(sample)
-        sample.means = theta
-        sample.weights = w
-        sample.meta["cov"] = cov
-        return sample
+        with annotate("elfi.smc.population"):
+            sample = self._rejection.extract_result()
+            sample.method_name = "Rejection within SMC-ABC"
+            theta, w, cov = self._weigh_population(sample)
+            sample.means = theta
+            sample.weights = w
+            sample.meta["cov"] = cov
+            return sample
 
     def _weigh_population(self, pop):
         """Importance weights, parameter matrix and perturbation covariance
@@ -864,8 +884,10 @@ class SMC(Sampler):
             w = np.ones(pop.n_samples)
         else:
             x = torch.as_tensor(theta, device=self.device)
-            log_w = (self._prior_logpdf(x)
-                     - GMDistribution.logpdf(x, self._proposal)).cpu().numpy()
+            log_w = self._prior_logpdf(x) - GMDistribution.logpdf(
+                x, self._proposal)
+            with annotate("elfi.host_read"):
+                log_w = log_w.cpu().numpy()
             w = np.exp(log_w)
         if not np.any(w > 0):
             raise RuntimeError(
@@ -994,12 +1016,14 @@ class AdaptiveThresholdSMC(SMC):
         """Sample with adaptive threshold selection.  Rounds run fused on
         the device by default (eligibility as for :meth:`SMC.sample`); the
         density-ratio quantile selection happens between rounds."""
-        self.bar = bar
-        fused, prog = self._resolve_fused(fused, kwargs)
-        if not fused:
-            return Sampler.sample(self, n_samples, max_iter=max_iter,
-                                  bar=bar, **kwargs)
-        return self._sample_fused(n_samples, dict(max_iter=max_iter), prog)
+        with annotate("elfi.sample"):
+            self.bar = bar
+            fused, prog = self._resolve_fused(fused, kwargs)
+            if not fused:
+                return Sampler.sample(self, n_samples, max_iter=max_iter,
+                                      bar=bar, **kwargs)
+            return self._sample_fused(n_samples, dict(max_iter=max_iter),
+                                      prog)
 
     def _fused_advance_round(self):
         """Mirrors the unfused ``update``: fit the density ratio, stop when

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..ops.distributions import solve_lower_rows
+from ..utils.profiling import annotate
 
 __all__ = [
     "arr2d_to_batch", "batch_to_arr2d", "ceil_to_batch_size",
@@ -192,7 +193,9 @@ class GMDistribution:
         for _ in range(_MAX_REDRAWS):
             ok = torch.isfinite(prior_logpdf(out)) \
                 & torch.isfinite(out).all(dim=1)
-            if bool(ok.all()):
+            with annotate("elfi.host_read"):
+                inside = bool(ok.all())
+            if inside:
                 return out
             out = torch.where(ok[:, None], out,
                               cls._draw(prepared, size, generator))

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import rng
+from .profiling import annotate
 
 __all__ = ["Recorder", "Graph", "Replays", "side_stream", "on_side_stream",
            "counted", "count", "hold", "enabled", "record", "pack_keys"]
@@ -258,9 +259,11 @@ class Graph:
             g.manual_seed(s)
         if self.need_keys:
             j = self.replays % 2
-            if self._events[j] is not None:
-                # the copy two replays ago has read this buffer
-                self._events[j].synchronize()
+            copied = self._events[j]
+            if copied is not None and not copied.query():
+                # wait until the copy two replays ago has read this buffer
+                with annotate("elfi.host_read"):
+                    copied.synchronize()
             self._pinned[j].numpy()[:] = pack_keys(seeds)
             self.keys[:len(seeds)].copy_(self._pinned[j], non_blocking=True)
             self._events[j] = torch.cuda.Event()
@@ -295,7 +298,11 @@ class Replays:
     of the state it started from, taken inside it (the eager call's input
     is left as it is, and is returned there).  ``key`` must fix every
     shape the function sees, and every tensor it reads that the caller
-    may replace (a graph reads the tensors it was captured with)."""
+    may replace (a graph reads the tensors it was captured with).
+
+    Each call is one span (:func:`.profiling.annotate`) named by the
+    branch it takes: ``elfi.graph.record``, ``elfi.graph.capture`` (the
+    capture and its first replay) or ``elfi.graph.replay``."""
 
     def __init__(self, cap=8):
         self.entries = collections.OrderedDict()
@@ -326,34 +333,38 @@ class Replays:
     def __call__(self, key, state, fn, bases, start, device, persistent=(),
                  snapshot=False):
         entry = self.entries.get(key)
-        if entry is None:
-            (new, extra), rec = record(lambda: fn(state, start), start)
-            self._put(key, rec)
-            self.eager += 1
-            out = {**state, **new}
-            return (out, (extra, state)) if snapshot else (out, extra)
-        if isinstance(entry, Recorder):
-            static = {k: v.clone() for k, v in state.items()}
+        name = "elfi.graph.record" if entry is None else \
+            "elfi.graph.capture" if isinstance(entry, Recorder) else \
+            "elfi.graph.replay"
+        with annotate(name):
+            if entry is None:
+                (new, extra), rec = record(lambda: fn(state, start), start)
+                self._put(key, rec)
+                self.eager += 1
+                out = {**state, **new}
+                return (out, (extra, state)) if snapshot else (out, extra)
+            if isinstance(entry, Recorder):
+                static = {k: v.clone() for k, v in state.items()}
 
-            def body():
-                snap = {k: v.clone() for k, v in static.items()} \
-                    if snapshot else None
-                new, extra = fn(static, start)
-                outs = {}
-                for k, v in new.items():
-                    if k in static:
-                        static[k].copy_(v)
-                    else:
-                        outs[k] = v
-                return outs, ((extra, snap) if snapshot else extra)
+                def body():
+                    snap = {k: v.clone() for k, v in static.items()} \
+                        if snapshot else None
+                    new, extra = fn(static, start)
+                    outs = {}
+                    for k, v in new.items():
+                        if k in static:
+                            static[k].copy_(v)
+                        else:
+                            outs[k] = v
+                    return outs, ((extra, snap) if snapshot else extra)
 
-            entry = (static, Graph(body, entry, start, device, persistent))
-            self.captures += 1
-        self._put(key, entry)
-        static, graph = entry
-        for k, v in state.items():
-            if v is not static[k]:
-                static[k].copy_(v)
-        outs, extra = graph.replay(bases, start)
-        self.replays += 1
-        return {**static, **outs}, extra
+                entry = (static, Graph(body, entry, start, device, persistent))
+                self.captures += 1
+            self._put(key, entry)
+            static, graph = entry
+            for k, v in state.items():
+                if v is not static[k]:
+                    static[k].copy_(v)
+            outs, extra = graph.replay(bases, start)
+            self.replays += 1
+            return {**static, **outs}, extra

@@ -8,8 +8,22 @@
   keeps every device record.
 - :func:`trace` -- :func:`recorded`, then a Chrome trace of the host and
   (on a CUDA device) the device written into ``logdir``.
-- :func:`annotate` -- ``torch.profiler.record_function``, so a method's
-  phases show up on that timeline.
+- :func:`annotate` -- the port's one span primitive: a
+  ``torch.profiler.record_function`` while a profiler records, else a
+  shared null context, so a span costs a check when nothing records.
+
+The port's spans, all named ``elfi.*`` (one host thread; a span lies
+inside the spans open when it starts): ``elfi.sampler.init`` (an
+inference method's base built), ``elfi.sample`` (a sampler's call),
+``elfi.chunk`` (a chunk of the fused loop) and ``elfi.chunk.redo`` (a
+flagged chunk run again eagerly), ``elfi.graph.record`` / ``.capture`` /
+``.replay`` (a call into :class:`~elfi_tpu_torch.utils.capture.Replays`,
+by the branch it takes), ``elfi.proposal`` (an eager SMC batch's
+proposal draw), ``elfi.host_read`` (the fused loops waiting on the
+device: for a value, or for the copy of a graph's keys two replays ago
+where it has not ended), ``elfi.smc.round``, ``elfi.smc.population`` and
+``elfi.smc.next_round`` (an SMC round's chunks, its population copied
+and weighed, the next round set up).
 """
 
 from __future__ import annotations
@@ -18,6 +32,9 @@ import contextlib
 import os
 import time
 from collections import defaultdict
+
+import torch
+from torch.profiler import record_function
 
 __all__ = ["Timers", "recorded", "trace", "annotate", "PRIMER_NAME"]
 
@@ -81,9 +98,7 @@ def recorded():
     CUDA graphs, the profiler loses the device records of the first
     launches it records (up to about 40 on an H100), and the primer's
     absorb that loss.  They are not the block's."""
-    import torch
-    from torch.profiler import (ProfilerActivity, profile, record_function,
-                                schedule)
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + (
@@ -119,9 +134,13 @@ def trace(logdir="elfi_tpu_torch_trace"):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-@contextlib.contextmanager
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name):
-    """Mark a host-side region on the profiler's timeline."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield
+    """A span ``name`` on the profiler's timeline, on the clock of the
+    device's records: ``with annotate(name): ...``.  While no profiler
+    records it is one shared null context, so a span then costs the
+    check alone."""
+    return record_function(name) if torch._C._autograd._profiler_enabled() \
+        else _NO_SPAN

@@ -28,7 +28,9 @@ from elfi_tpu_torch.methods.utils import GMDistribution
 from elfi_tpu_torch.model.model import node_uid
 from elfi_tpu_torch.models import gauss, ma2, ma2_kernel
 from elfi_tpu_torch.ops import topk
-from elfi_tpu_torch.utils import capture, rng
+from elfi_tpu_torch.utils import capture, profiling, rng
+
+from test_torch_spans import inside, spans_of
 
 torch.set_num_threads(1)
 
@@ -376,6 +378,52 @@ def test_smc_proposal_chunk_equals_old_loop(cpu_capture, small_chunks):
                     spec=smc._propose, start=start)
     for k in ("d", "t1", "t2"):
         assert _equal(got[k], old[k]), k
+
+
+# -- spans -------------------------------------------------------------------
+
+def test_a_graph_cache_call_is_one_span_named_by_its_branch(cpu_capture):
+    """A key's first call records, its second captures and replays, later
+    ones replay; another key records again."""
+    replays = capture.Replays()
+
+    def fn(state, start):
+        return {"x": state["x"] + start}, state["x"].sum()
+
+    with profiling.recorded() as prof:
+        for key in ("a", "a", "a", "a", "b"):
+            replays(key, {"x": torch.zeros(3)}, fn, {}, 1, "cpu")
+    assert [s[0] for s in spans_of(prof)] == [
+        "elfi.graph.record", "elfi.graph.capture", "elfi.graph.replay",
+        "elfi.graph.replay", "elfi.graph.record"]
+
+
+def test_smc_chunks_hold_their_graph_and_redo_spans(cpu_capture,
+                                                    small_chunks):
+    """A warm SMC run's chunks: each graph call's span lies in its
+    chunk's; a round's first proposal chunk replays and, flagged (no
+    masked redraw round: MA2's proposals leave the prior's support), runs
+    again eagerly inside an ``elfi.chunk.redo``; the rest of the round's
+    chunks call no graph."""
+    assert samplers._REDRAW_ROUNDS == 0
+    m = ma2.get_model(seed_obs=4)
+    kw = dict(quantiles=[0.5, 0.05, 0.05])
+    for _ in range(3):
+        _smc(m, kw)             # records and captures every graph
+    with profiling.recorded() as prof:
+        smc, _ = _smc(m, kw)
+    spans = spans_of(prof)
+    chunks = [s for s in spans if s[0] == "elfi.chunk"]
+    graph = [s for s in spans if s[0].startswith("elfi.graph.")]
+    redos = [s for s in spans if s[0] == "elfi.chunk.redo"]
+    assert graph and {s[0] for s in graph} == {"elfi.graph.replay"}
+    assert len(redos) == smc.state["redone_chunks"] == 2
+    held = [[s for s in graph + redos if inside(s, c)] for c in chunks]
+    assert sum(len(h) for h in held) == len(graph) + len(redos)
+    kinds = [tuple(s[0] for s in h) for h in held]
+    assert kinds.count(("elfi.graph.replay", "elfi.chunk.redo")) == 2
+    assert kinds.count(()) > 0
+    assert kinds.count(("elfi.graph.replay",)) == len(graph) - 2
 
 
 # -- the masked redraw -------------------------------------------------------
