@@ -86,17 +86,30 @@ _MAX_BATCHES = 100_000
 #: folded into a round's seed to key its proposal streams (the JAX
 #: package's constant)
 _PROPOSAL_SALT = 0x9E3779B9
-#: masked prior-support redraw rounds of an SMC proposal inside a captured
-#: chunk (:meth:`.utils.GMDistribution.rvs_masked`); a batch that needs
-#: more sends its chunk back to the eager loop, and the round's later
-#: chunks run eagerly.  scripts/torch_capture_ab.py on an NVIDIA H100 80GB
-#: HBM3 at 700.00 W: the eager loop's rounds per batch were 0 for all 48
-#: batches of gauss2d SMC (batch 16384) and 2-13 for MA2 SMC (batch 2000,
-#: quantiles 0.5, 0.2, 0.2); best walls over 0, 1, 2, 3, 4 rounds were
-#: 17.3, 21.0, 24.7, 27.9, 31.7 ms (gauss2d) and 176, 252, 238, 271, 312
-#: ms (MA2, every round's first chunk run again at each): each round
-#: costs a whole draw of the batch, so 0.
-_REDRAW_ROUNDS = 0
+#: the masked prior-support redraw rounds that a captured SMC proposal
+#: chunk holds (:meth:`.utils.GMDistribution.rvs_masked`) are learned per
+#: proposal program from its eager proposal chunks: 0 until an eager
+#: batch takes more, then the most one took plus this headroom; a batch
+#: that needs more than its graph holds flags its chunk, which runs again
+#: eagerly and raises the count.  scripts/torch_capture_ab.py on an
+#: NVIDIA H100 80GB HBM3 at 700.00 W, MA2 SMC at batch 10000 (1000
+#: samples, thresholds 0.7, 0.2, 0.05): the eager loop took 2-6 rounds a
+#: batch (512 batches); a round costs a run 2.9 ms of wall (32 batches
+#: in two graphs; walls at headrooms 0, 8, 16: counts 7, 12, 20), a rise
+#: of the count 0.3-0.4 s once (a redone chunk, a graph recorded and
+#: captured).
+#: Over 3 windows of 400 runs from a fresh model, headrooms 0, 1, 2 rose
+#: 5, 4 and 2 times and ran 41.8, 43.6 and 42.7 ms a run, a difference
+#: the windows' spread (7 %) does not resolve; but at 0 the rises come in
+#: a process's first runs (2 in the 35 runs after the benchmark's
+#: warm-up), each run that rises taking 0.25-0.8 s, and 2 keeps them out.
+_REDRAW_HEADROOM = 2
+#: the most redraw rounds a graph holds; a batch that needs more keeps
+#: its chunk's eager redo.  At MA2 SMC's batch 10000, 32 rounds cost a run
+#: 93 ms, less than the eager fallback of its two proposal chunks (123 ms
+#: a run: 165 against 42 ms, the same card), and twice the most a batch
+#: took in the runs measured (16, MA2 SMC at batch 2000).
+_REDRAW_CAP = 32
 
 
 def _fused_unroll(batch_size, shapes):
@@ -137,14 +150,16 @@ class _ChunkLoop:
     the outputs' shapes), run eagerly.  The threshold and an SMC round's
     mixture are device tensors kept with the graphs, rewritten each run,
     so one graph serves any threshold and every round.  SMC proposals
-    draw ``_REDRAW_ROUNDS`` masked prior-support redraw rounds inside the
-    graph (:meth:`.utils.GMDistribution.rvs_masked`); the chunk's flag
+    draw a learned number of masked prior-support redraw rounds inside
+    the graph (:meth:`.utils.GMDistribution.rvs_masked`), kept with the
+    graphs (``replays.memo``) and part of the graph's key: an eager
+    proposal chunk raises it to the most rounds one of its batches took
+    plus ``_REDRAW_HEADROOM``, at most ``_REDRAW_CAP``.  The chunk's flag
     that a batch needed more is read with its acceptance count, and such
     a chunk is run again eagerly from the state it started from, which
     the graph saves, with the eager redraw loop; the run's later chunks
-    run eagerly (this round's mixture sends rows outside the support), and
-    the next run (the next round) tries its graph again.  Every path gives
-    the eager loop's rows, bit for bit."""
+    run eagerly, and the next run (the next round) takes the graph of the
+    raised count.  Every path gives the eager loop's rows, bit for bit."""
 
     def __init__(self, prog, devices, batch_size, seed, start_index, n,
                  disc, threshold, overrides_spec):
@@ -161,7 +176,12 @@ class _ChunkLoop:
         #: chunks run again eagerly for a proposal's redraw
         self.redone = 0
         #: set by a redone chunk: this run's later chunks run eagerly
+        #: (scripts/torch_capture_ab.py, MA2 SMC at batch 2000 from a
+        #: fresh model: 12.2 s against 12.9 s for the four-run turns with
+        #: a redo, where the later chunks took the raised count's graph)
         self.eager_proposals = False
+        #: the most redraw rounds a graph of this run held
+        self.held = 0
         self.parts = [None] * self.D
         self.merged = [0] * self.D
         self.unroll = replays.memo.get(("unroll", self.fns[0])) \
@@ -171,6 +191,7 @@ class _ChunkLoop:
             if overrides_spec is not None:
                 # the graphs read the mixture from buffers kept with them
                 self.spec = overrides_spec.on_buffers(replays)
+                self.rounds_key = ("redraw_rounds", self.spec.graph_key)
             shape = threshold.shape if isinstance(threshold,
                                                   torch.Tensor) else ()
             thr = replays.buffer(("threshold", tuple(shape)), shape,
@@ -209,11 +230,25 @@ class _ChunkLoop:
                 close(k)
         return tuple(plan), merged
 
-    def _body(self, parts, i0, length, masked):
-        """Queue the chunk at batch ``i0`` from the buffers ``parts``;
-        returns (the new buffers, each device's acceptance counts, each
-        masked proposal's flag that its rows are in the prior's
-        support)."""
+    def _rounds(self):
+        """The redraw rounds a graph of these proposals holds now."""
+        return self.replays.memo.get(self.rounds_key, 0)
+
+    def _learn(self):
+        """Raise the learned redraw rounds to cover the most that a batch
+        of this run's eager proposals took, plus the headroom, at most the
+        cap."""
+        most = self.spec.most_rounds
+        if most > self._rounds():
+            self.replays.memo[self.rounds_key] = min(
+                _REDRAW_CAP, most + _REDRAW_HEADROOM)
+
+    def _body(self, parts, i0, length, rounds):
+        """Queue the chunk at batch ``i0`` from the buffers ``parts``, the
+        proposals drawn with ``rounds`` masked redraw rounds (None: the
+        eager redraw loop); returns (the new buffers, each device's
+        acceptance counts, each masked proposal's flag that its rows are
+        in the prior's support)."""
         parts = list(parts)
         pending = [[] for _ in self.devices]
         accs = [[] for _ in self.devices]
@@ -233,8 +268,8 @@ class _ChunkLoop:
             k = i % self.D
             dev = self.devices[k]
             ov = {}
-            if self.spec is not None and masked:
-                ov, ok = self.spec.masked(i, _REDRAW_ROUNDS)
+            if self.spec is not None and rounds is not None:
+                ov, ok = self.spec.masked(i, rounds)
                 oks.append(ok)
             elif self.spec is not None:
                 ov = self.spec(i)
@@ -270,23 +305,26 @@ class _ChunkLoop:
             graph = (self.captured and self.unroll is not None
                      and length == _FUSED_CHUNK and not self.eager_proposals)
             if not graph:
-                parts, accs, _ = self._body(self.parts, i0, length, False)
+                parts, accs, _ = self._body(self.parts, i0, length, None)
                 self.merged = self._plan(i0, length)[1]
                 self.parts = parts
+                if self.captured and self.spec is not None:
+                    self._learn()
                 return _accepted(accs) if read else 0
             plan, merged = self._plan(i0, length)
             masked = self.spec is not None
+            rounds = self._rounds() if masked else None
             # the first chunk allocates the buffers inside its graph
             state = self.parts[0] or {}
             key = ("chunk", self.fns[0], self.B, self.n, self.disc, plan,
                    tuple(self.thrs[0].shape),
-                   (self.spec.graph_key, _REDRAW_ROUNDS) if masked else None,
+                   (self.spec.graph_key, rounds) if masked else None,
                    tuple((k, tuple(v.shape), v.dtype)
                          for k, v in state.items()))
 
             def fn(state, i0):
                 parts, accs, oks = self._body([state or None], i0, length,
-                                              masked)
+                                              rounds)
                 bad = (~torch.stack(oks)).sum() if oks else torch.zeros(
                     (), dtype=torch.int64, device=self.devices[0])
                 return parts[0], torch.stack([torch.stack(accs[0]).sum(),
@@ -295,6 +333,7 @@ class _ChunkLoop:
             bases = {"node": self.seed}
             if masked:
                 bases["batch"] = self.spec.key
+                self.held = max(self.held, rounds)
             new, extra = self.replays(key, state, fn, bases, i0,
                                       self.devices[0], snapshot=masked)
             stat, before = extra if masked else (extra, None)
@@ -309,10 +348,11 @@ class _ChunkLoop:
                 # the chunk again, eagerly, from the state it started from
                 with annotate("elfi.chunk.redo"):
                     parts, accs, _ = self._body([dict(before) or None], i0,
-                                                length, False)
+                                                length, None)
                     self.parts = parts
                     self.redone += 1
                     self.eager_proposals = True
+                    self._learn()
                     accepted = _accepted(accs)
             return accepted if read else 0
 
@@ -565,6 +605,7 @@ class Rejection(Sampler):
         self.state["n_batches"] = done
         self.state["n_sim"] = done * self.batch_size
         self.state["redone_chunks"] = loop.redone
+        self.state["redraw_rounds"] = loop.held
         self.state["samples"] = topk.merge_parts(parts, n, self.device)
         self.objective["n_batches"] = done
 
@@ -631,6 +672,8 @@ class _GMProposals:
         #: what a graph of these draws reads: the mixture's tensors
         self.graph_key = (batch_size, self.pnames) + tuple(
             (t.data_ptr(), tuple(t.shape)) for t in proposal)
+        #: the most redraw rounds a batch of :meth:`__call__` took
+        self.most_rounds = 0
 
     def on_buffers(self, replays):
         """These proposals drawn from the mixture copied into buffers kept
@@ -650,11 +693,11 @@ class _GMProposals:
 
     def __call__(self, batch_index):
         with annotate("elfi.proposal"):
-            return self._columns(GMDistribution.rvs(
-                self.proposal, size=self.batch_size,
-                prior_logpdf=self.prior_logpdf,
-                generator=batch_generator(self.key, batch_index,
-                                          self.device)))
+            params, rounds = GMDistribution.rvs_counted(
+                self.proposal, self.batch_size, self.prior_logpdf,
+                batch_generator(self.key, batch_index, self.device))
+            self.most_rounds = max(self.most_rounds, rounds)
+            return self._columns(params)
 
     def masked(self, batch_index, rounds):
         """(the proposals, a 0-d flag that every row is in the prior's
@@ -760,6 +803,9 @@ class SMC(Sampler):
             start += rej.state["n_batches"]
             self.state["redone_chunks"] = (self.state.get("redone_chunks", 0)
                                            + rej.state["redone_chunks"])
+            self.state["redraw_rounds"] = max(
+                self.state.get("redraw_rounds", 0),
+                rej.state["redraw_rounds"])
             self.state["n_sim"] += rej.state["n_sim"]
             self.state["n_batches"] += rej.state["n_batches"]
             if pb:

@@ -187,16 +187,24 @@ class GMDistribution:
             raise ValueError("GMDistribution.rvs requires a torch.Generator")
         prepared = means if isinstance(means, PreparedGM) else cls.prepare(
             means, cov, weights, device=generator.device)
-        out = cls._draw(prepared, size, generator)
         if prior_logpdf is None:
-            return out
-        for _ in range(_MAX_REDRAWS):
+            return cls._draw(prepared, size, generator)
+        return cls.rvs_counted(prepared, size, prior_logpdf, generator)[0]
+
+    @classmethod
+    def rvs_counted(cls, prepared, size, prior_logpdf, generator):
+        """:meth:`rvs` of a :class:`PreparedGM` under ``prior_logpdf``:
+        (the draws, the redraw rounds the loop took).  A batch that took
+        ``k`` rounds is what :meth:`rvs_masked` gives, flag set, at
+        ``rounds >= k``."""
+        out = cls._draw(prepared, size, generator)
+        for rounds in range(_MAX_REDRAWS):
             ok = torch.isfinite(prior_logpdf(out)) \
                 & torch.isfinite(out).all(dim=1)
             with annotate("elfi.host_read"):
                 inside = bool(ok.all())
             if inside:
-                return out
+                return out, rounds
             out = torch.where(ok[:, None], out,
                               cls._draw(prepared, size, generator))
         raise RuntimeError(

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The captured loops' two constants on the card: the chunk of the fused
+"""The captured loops' constants on the card: the chunk of the fused
 rejection loop (``methods/samplers.py`` ``_FUSED_CHUNK``: batches a CUDA
 graph holds, and batches between two reads of the acceptance count) and
-the masked redraw rounds of an SMC proposal inside a graph
-(``_REDRAW_ROUNDS``); the MH steps a BSL graph holds
+the headroom of the masked redraw rounds that an SMC proposal graph
+learns (``_REDRAW_HEADROOM``); the MH steps a BSL graph holds
 (``methods/bsl/method.py`` ``_CHAIN_BLOCK``); and the device memory that
 kept graphs hold, against the graphs a program keeps (``Replays(cap=8)``
 in ``utils/capture.py``).
@@ -22,10 +22,21 @@ walls taken in turns; the rejection arms' samples equal to the eager
 arm's bit for bit, and SMC's at chunk 16 (a threshold round stops at a
 chunk's end, so other chunks give other samples).
 
-Redraw rounds: the eager redraw loop's rounds per proposal batch in the
-gauss2d and MA2 SMC runs (a histogram), then gauss2d and MA2 SMC captured
-at 0 .. 4 rounds: walls (best of ``--reps``, in turns) and the chunks run
-again eagerly because a batch needed more rounds.
+Redraw rounds: the eager redraw loop's rounds per proposal batch (a
+histogram, and the most a run's batches took) in gauss2d SMC, MA2 SMC
+at batch 2000 (quantiles 0.5, 0.2, 0.2) and MA2 SMC at the benchmark's
+``ma2-smc`` shapes (batch 10,000, 1,000 samples, thresholds 0.7, 0.2,
+0.05, ``seed_obs=271``), over ``--seeds`` seeds each.  Then, at the
+``ma2-smc`` shapes, captured runs learning the rounds under headrooms 0
+.. 4, each arm on its own model (its own graphs and count), every arm the
+same fresh seed a run: the walls of ``--seeds`` runs after a warm-up
+run (``--reps`` turns), the count each learned and the chunks run again;
+then headrooms 0, 1 and 2 as the benchmark runs the cell, a fresh model a
+turn: four warm-up runs, then ``25 * --seeds`` timed runs.
+Last, MA2 SMC at batch 2000, whose rounds take several chunks: after a
+redone chunk, the round's later chunks running eagerly (the port's
+choice) against taking the graph of the raised count, each turn four runs
+on a fresh model (so they learn and redo), ``2 * --reps`` turns.
 
 BSL block: the chain at the JAX bench's point (MA2, 500 simulations a
 step, 1000 steps, Warton shrinkage 0.3) eagerly and captured in blocks of
@@ -48,6 +59,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import subprocess
 import sys
 import time
@@ -114,20 +126,22 @@ def equal(a, b):
                zip(samples_of(a), samples_of(b)) for k in x)
 
 
-def with_settings(fn, chunk=None, rounds=None, captured=True, block=None):
+def with_settings(fn, chunk=None, headroom=None, captured=True,
+                  block=None):
     from elfi_tpu_torch.utils import capture
 
     def run():
-        saved = (samplers._FUSED_CHUNK, samplers._REDRAW_ROUNDS,
+        saved = (samplers._FUSED_CHUNK, samplers._REDRAW_HEADROOM,
                  capture._ENABLED, bsl_method._CHAIN_BLOCK)
         samplers._FUSED_CHUNK = chunk or saved[0]
-        samplers._REDRAW_ROUNDS = saved[1] if rounds is None else rounds
+        samplers._REDRAW_HEADROOM = saved[1] if headroom is None \
+            else headroom
         capture._ENABLED = captured
         bsl_method._CHAIN_BLOCK = block or saved[3]
         try:
             return fn()
         finally:
-            (samplers._FUSED_CHUNK, samplers._REDRAW_ROUNDS,
+            (samplers._FUSED_CHUNK, samplers._REDRAW_HEADROOM,
              capture._ENABLED, bsl_method._CHAIN_BLOCK) = saved
     return run
 
@@ -235,11 +249,156 @@ def memory_phase(dev):
     return out
 
 
+def smc_points(dev, plain, g2):
+    """{name: (a fresh model's distance node or None for ``plain`` and
+    ``g2``, ``run(node, seed)``)} of the redraw phase."""
+    def smc(node, batch, n, **kw):
+        def run(nd, seed):
+            s = et.SMC(nd, batch_size=batch, seed=seed, device=dev)
+            return s, s.sample(n, bar=False, **kw)
+        return node, run
+
+    return {
+        "gauss2d smc": smc(g2, 16384, 2000, thresholds=GAUSS_THRESHOLDS),
+        "ma2 smc 2000": smc(plain, 2000, 1000, quantiles=[0.5, 0.2, 0.2]),
+        "ma2-smc": smc(None, 10000, 1000, thresholds=[0.7, 0.2, 0.05]),
+    }
+
+
+def learned_rounds(s):
+    graphs = compile_program(s.model, tuple(s.output_names),
+                             override_names=tuple(sorted(s.parameter_names)),
+                             device=s.device).replays
+    return max([v for k, v in graphs.memo.items()
+                if k[0] == "redraw_rounds"], default=0)
+
+
+def smc_arms(arms, seeds, reps, cold=False, warm=1):
+    """{arm: the walls of ``seeds`` runs, one a turn of ``reps`` in
+    turns, with the chunks run again in them and the count learned after
+    each}.  ``arms`` maps a name to ``make() -> run(seed) -> sampler``,
+    ``make`` building a fresh model (its own graphs and count): made once,
+    or with ``cold`` afresh every turn; each made model first runs
+    ``warm`` untimed runs.  Every arm runs the same seeds."""
+    out = {k: dict(walls_s=[], redone_chunks=[], learned_rounds=[])
+           for k in arms}
+    made = {}
+    order = list(arms)
+    for r in range(reps):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            if cold or name not in made:
+                made[name] = arms[name]()
+                for i in range(warm):
+                    made[name](10**6 + r * warm + i)
+            fn = made[name]
+
+            def runs(fn=fn):
+                return [fn(r * seeds + i) for i in range(seeds)]
+            smcs, wall = timed(runs)
+            o = out[name]
+            o["walls_s"].append(wall)
+            o["redone_chunks"].append(
+                sum(s.state.get("redone_chunks", 0) for s in smcs))
+            o["learned_rounds"].append(learned_rounds(smcs[-1]))
+    return out
+
+
+def redo_then_graphs(chunk):
+    """``_ChunkLoop.chunk`` after which a redone chunk's later chunks take
+    the graph of the raised count, where the port runs them eagerly."""
+    def run(self, *args, **kwargs):
+        redone = self.redone
+        out = chunk(self, *args, **kwargs)
+        if self.redone > redone:
+            self.eager_proposals = False
+        return out
+    return run
+
+
+def redraw_phase(dev, plain, g2, reps, seeds):
+    """The eager redraw loop's rounds per batch, and warm captured walls
+    under each headroom and after-redo choice (module docstring)."""
+    points = smc_points(dev, plain, g2)
+    real = GMDistribution.rvs_counted.__func__
+    taken = []
+
+    def counting(cls, *args):
+        out, rounds = real(cls, *args)
+        taken.append(rounds)
+        return out, rounds
+
+    report = {"redraw_rounds_per_batch": {}, "most_rounds_per_run": {}}
+    for name, (node, run) in points.items():
+        nd = node or ma2.get_model(seed_obs=SEED_OBS)["d"]
+        hist, most = collections.Counter(), []
+        GMDistribution.rvs_counted = classmethod(counting)
+        try:
+            for seed in range(seeds):
+                taken.clear()
+                with_settings(lambda: run(nd, 1000 + seed),
+                              captured=False)()
+                hist.update(taken)
+                most.append(max(taken, default=0))
+        finally:
+            GMDistribution.rvs_counted = classmethod(real)
+        report["redraw_rounds_per_batch"][name] = dict(sorted(hist.items()))
+        report["most_rounds_per_run"][name] = most
+        print(name, "redraw rounds per batch:", dict(sorted(hist.items())),
+              "most a run:", most, flush=True)
+
+    _, run = points["ma2-smc"]
+
+    def headroom_arm(h):
+        def make():
+            nd = ma2.get_model(seed_obs=SEED_OBS)["d"]
+            return lambda seed: with_settings(lambda: run(nd, seed),
+                                              headroom=h)()[0]
+        return make
+    # a wide range, so the walls resolve what a round costs a run
+    arms = {f"headroom {h}": headroom_arm(h) for h in (0, 2, 8, 16)}
+    report["headroom_ma2-smc"] = smc_arms(arms, seeds, reps)
+    print("ma2-smc headroom", report["headroom_ma2-smc"], flush=True)
+    # as the benchmark runs the cell: a fresh process's four warm-up runs,
+    # then a window's worth of runs, rises of the count included
+    arms = {f"headroom {h}": headroom_arm(h) for h in (0, 1, 2)}
+    report["headroom_ma2-smc_window"] = smc_arms(arms, 25 * seeds, reps,
+                                                 cold=True, warm=4)
+    print("ma2-smc headroom, a window a turn",
+          report["headroom_ma2-smc_window"], flush=True)
+
+    _, run = points["ma2 smc 2000"]
+
+    def after_redo_arm(graphed):
+        def make():
+            nd = ma2.get_model(seed_obs=SEED_OBS)["d"]
+
+            def go(seed):
+                chunk = samplers._ChunkLoop.chunk
+                if graphed:
+                    samplers._ChunkLoop.chunk = redo_then_graphs(chunk)
+                try:
+                    return run(nd, seed)[0]
+                finally:
+                    samplers._ChunkLoop.chunk = chunk
+            return go
+        return make
+    # cold: a fresh model a turn, so its first runs learn and redo
+    arms = {"later chunks graphed": after_redo_arm(True),
+            "later chunks eager": after_redo_arm(False)}
+    report["after_redo_ma2_smc_2000"] = smc_arms(arms, 4, 2 * reps,
+                                                 cold=True, warm=0)
+    print("ma2 smc 2000 after a redo", report["after_redo_ma2_smc_2000"],
+          flush=True)
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/capture_ab.json")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--phases", default="chunk,redraw,bsl,memory")
+    ap.add_argument("--seeds", type=int, default=8,
+                    help="SMC runs of each redraw measurement")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -285,69 +444,8 @@ def main():
         print(name, chunk[name], flush=True)
     report["chunk_walls_s"] = chunk
 
-    # the eager redraw loop's rounds per batch
-    rounds_hist = {}
-    real = GMDistribution.rvs.__func__
-
-    def counting(cls, means, cov=1, weights=None, size=1, prior_logpdf=None,
-                 generator=None):
-        calls = []
-
-        def logpdf(x):
-            calls.append(1)
-            return prior_logpdf(x)
-        out = real(cls, means, cov, weights, size,
-                   None if prior_logpdf is None else logpdf, generator)
-        hist[max(len(calls) - 1, 0)] += 1
-        return out
-
-    smc_paths = {
-        "gauss2d smc": paths["gauss2d smc"],
-        "ma2 smc plain": lambda: et.SMC(
-            plain, batch_size=2000, seed=4, device=dev).sample(
-                1000, quantiles=[0.5, 0.2, 0.2], bar=False),
-    }
-    for name, fn in (smc_paths.items() if "redraw" in phases else ()):
-        hist = collections.Counter()
-        GMDistribution.rvs = classmethod(counting)
-        try:
-            with_settings(fn, captured=False)()
-        finally:
-            GMDistribution.rvs = classmethod(real)
-        rounds_hist[name] = dict(sorted(hist.items()))
-        print(name, "redraw rounds per batch:", rounds_hist[name],
-              flush=True)
-    report["redraw_rounds_per_batch"] = rounds_hist
-
-    redraw = {}
-    for name, fn in (smc_paths.items() if "redraw" in phases else ()):
-        redone = {}
-
-        def arm(k, fn=fn):
-            def run():
-                smc_fn = with_settings(fn, rounds=k)
-                res = smc_fn()
-                return res
-            return run
-        arms = {f"rounds {k}": arm(k) for k in range(5)}
-        res = arms_in_turns(arms, args.reps)
-        ref = res["rounds 0"][0]
-        for a, (out, wall) in res.items():
-            assert equal(out, ref), f"{name} {a}: differs"
-        redraw[name] = {a: wall for a, (_, wall) in res.items()}
-        for k in range(5):
-            smc = et.SMC(g2 if name == "gauss2d smc" else plain,
-                         batch_size=16384 if name == "gauss2d smc" else 2000,
-                         seed=4, device=dev)
-            with_settings(lambda: smc.sample(
-                2000, thresholds=GAUSS_THRESHOLDS, bar=False)
-                if name == "gauss2d smc" else smc.sample(
-                    1000, quantiles=[0.5, 0.2, 0.2], bar=False),
-                rounds=k)()
-            redone[k] = smc.state.get("redone_chunks", 0)
-        redraw[name]["redone_chunks"] = redone
-        print(name, redraw[name], flush=True)
-    report["redraw_walls_s"] = redraw
+    if "redraw" in phases:
+        report.update(redraw_phase(dev, plain, g2, args.reps, args.seeds))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(report, indent=1))
     print(json.dumps(report), flush=True)

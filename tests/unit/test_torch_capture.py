@@ -24,7 +24,7 @@ from elfi_tpu.models import ma2 as jax_ma2
 from elfi_tpu_torch.compile.compiler import compile_program
 from elfi_tpu_torch.methods import samplers
 from elfi_tpu_torch.methods.bsl import method as bsl_method
-from elfi_tpu_torch.methods.utils import GMDistribution
+from elfi_tpu_torch.methods.utils import GMDistribution, PreparedGM
 from elfi_tpu_torch.model.model import node_uid
 from elfi_tpu_torch.models import gauss, ma2, ma2_kernel
 from elfi_tpu_torch.ops import topk
@@ -297,64 +297,79 @@ def _round_graphs(smc):
         device="cpu").replays
 
 
-@pytest.mark.parametrize("redraw_rounds", [16, 0])
-def test_smc_rounds_replayed_equal_eager(cpu_capture, small_chunks,
-                                         monkeypatch, redraw_rounds):
-    """Rounds >= 1 replay one graph; with no masked redraw round inside
-    it (MA2's proposals leave the triangle prior's support), a round's
-    first chunk runs again eagerly and the rest of the round eagerly, the
-    next round replays its first chunk again, and the result is the
-    same."""
-    monkeypatch.setattr(samplers, "_REDRAW_ROUNDS", redraw_rounds)
+def _learned_rounds(graphs):
+    """The redraw rounds learned for the proposal graphs in ``graphs``."""
+    learned = [v for k, v in graphs.memo.items() if k[0] == "redraw_rounds"]
+    assert len(learned) <= 1
+    return learned[0] if learned else 0
+
+
+def _same_populations(got, want, names):
+    assert len(got.populations) == len(want.populations)
+    for pg, pe in zip(got.populations, want.populations):
+        for k in names:
+            assert _equal(pg.outputs[k], pe.outputs[k]), k
+        np.testing.assert_array_equal(pg.weights, pe.weights)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_smc_rounds_replayed_equal_eager(cpu_capture, small_chunks, warm):
+    """Rounds >= 1 replay one graph a merge schedule.  A cold run learns
+    the redraw rounds from its eager proposal chunks (MA2's proposals
+    leave the triangle prior's support): its first proposal chunk runs
+    eagerly and a chunk whose batch needed more than its graph held runs
+    again eagerly; a warm run replays every chunk, none run again, and
+    both give the eager run's populations."""
     m = ma2.get_model(seed_obs=4)
     kw = dict(quantiles=[0.5, 0.05, 0.05])
     cpu_capture["on"] = False
     _, eager = _smc(m, kw)
     cpu_capture["on"] = True
     smc, got = _smc(m, kw)
-    assert len(got.populations) == len(eager.populations) == 3
-    for pg, pe in zip(got.populations, eager.populations):
-        for k in ("d", "t1", "t2"):
-            assert _equal(pg.outputs[k], pe.outputs[k]), k
-        np.testing.assert_array_equal(pg.weights, pe.weights)
+    _same_populations(got, eager, ("d", "t1", "t2"))
     graphs = _round_graphs(smc)
-    assert graphs.replays >= (2 if redraw_rounds else 0)
-    # one graph a merge schedule serves every round >= 1
+    learned = _learned_rounds(graphs)
+    assert learned > 0
+    assert smc.state["redraw_rounds"] == learned
+    assert smc.state["redone_chunks"] > 0
+    if warm:
+        replays = graphs.replays
+        smc, got = _smc(m, kw)
+        _same_populations(got, eager, ("d", "t1", "t2"))
+        assert smc.state["redone_chunks"] == 0
+        assert smc.state["redraw_rounds"] == _learned_rounds(graphs) \
+            == learned
+        batches = sum(p.meta["n_batches"] for p in got.populations[1:])
+        assert graphs.replays - replays == batches // samplers._FUSED_CHUNK
+    # one graph a merge schedule and count serves every round >= 1
     assert len([g for g in graphs.entries.values()
                 if isinstance(g, tuple)]) <= 3
-    # a second sampler replays the same graphs and equals eager again
-    _, again = _smc(m, kw)
-    for pg, pe in zip(again.populations, eager.populations):
-        for k in ("d", "t1", "t2"):
-            assert _equal(pg.outputs[k], pe.outputs[k]), k
-    if redraw_rounds == 0:
-        assert smc.state["redone_chunks"] > 0
-        # the eager switch lasts one round: the second sampler's rounds
-        # replay their first chunks
-        assert graphs.replays >= 2
 
 
 def test_gauss2d_smc_rounds_replayed_equal_eager(cpu_capture, small_chunks):
-    """The bench's gauss2d SMC (wide uniform priors): with no masked
-    redraw round, the rounds whose proposals stay in the support replay
-    their chunks."""
-    assert samplers._REDRAW_ROUNDS == 0
+    """The bench's gauss2d SMC (batch 16384, wide uniform priors): no
+    proposal leaves the support, so the learned redraw rounds stay 0, the
+    graph's key holds 0, and every chunk of a warm run replays."""
     m = gauss.get_model(n_obs=50, true_params=[4.0, 2.0], nd_mean=True,
                         cov_matrix=np.eye(2))
 
     def run():
-        smc = et.SMC(m["d"], batch_size=64, seed=4)
-        return smc, smc.sample(100, thresholds=[2.0, 1.0, 0.5], bar=False)
+        smc = et.SMC(m["d"], batch_size=16384, seed=4)
+        return smc, smc.sample(2000, thresholds=[2.0, 1.0, 0.5, 0.3],
+                               bar=False)
 
     cpu_capture["on"] = False
     _, eager = run()
     cpu_capture["on"] = True
     run()
     smc, got = run()
-    for pg, pe in zip(got.populations, eager.populations):
-        for k in ("d", "mu_0", "mu_1"):
-            assert _equal(pg.outputs[k], pe.outputs[k]), k
-    assert _round_graphs(smc).replays > 0
+    _same_populations(got, eager, ("d", "mu_0", "mu_1"))
+    graphs = _round_graphs(smc)
+    assert graphs.replays > 0
+    assert _learned_rounds(graphs) == 0
+    assert smc.state["redraw_rounds"] == smc.state["redone_chunks"] == 0
+    keys = [k for k in graphs.entries if k[0] == "chunk"]
+    assert keys and all(k[7][1] == 0 for k in keys)
 
 
 def test_smc_proposal_chunk_equals_old_loop(cpu_capture, small_chunks):
@@ -398,32 +413,39 @@ def test_a_graph_cache_call_is_one_span_named_by_its_branch(cpu_capture):
         "elfi.graph.replay", "elfi.graph.record"]
 
 
+@pytest.mark.parametrize("warm", [False, True])
 def test_smc_chunks_hold_their_graph_and_redo_spans(cpu_capture,
-                                                    small_chunks):
-    """A warm SMC run's chunks: each graph call's span lies in its
-    chunk's; a round's first proposal chunk replays and, flagged (no
-    masked redraw round: MA2's proposals leave the prior's support), runs
-    again eagerly inside an ``elfi.chunk.redo``; the rest of the round's
-    chunks call no graph."""
-    assert samplers._REDRAW_ROUNDS == 0
+                                                    small_chunks, warm):
+    """An SMC run's chunks: each graph call's span lies in its chunk's.
+    In a cold run a chunk whose proposals needed more redraw rounds than
+    its graph held runs again eagerly inside an ``elfi.chunk.redo``, after
+    its graph call; in a warm run every chunk replays its graph and none
+    runs again."""
     m = ma2.get_model(seed_obs=4)
     kw = dict(quantiles=[0.5, 0.05, 0.05])
-    for _ in range(3):
-        _smc(m, kw)             # records and captures every graph
+    for _ in range(3 if warm else 0):
+        _smc(m, kw)             # learns the rounds, records, captures
     with profiling.recorded() as prof:
         smc, _ = _smc(m, kw)
     spans = spans_of(prof)
     chunks = [s for s in spans if s[0] == "elfi.chunk"]
     graph = [s for s in spans if s[0].startswith("elfi.graph.")]
     redos = [s for s in spans if s[0] == "elfi.chunk.redo"]
-    assert graph and {s[0] for s in graph} == {"elfi.graph.replay"}
-    assert len(redos) == smc.state["redone_chunks"] == 2
     held = [[s for s in graph + redos if inside(s, c)] for c in chunks]
     assert sum(len(h) for h in held) == len(graph) + len(redos)
     kinds = [tuple(s[0] for s in h) for h in held]
-    assert kinds.count(("elfi.graph.replay", "elfi.chunk.redo")) == 2
-    assert kinds.count(()) > 0
-    assert kinds.count(("elfi.graph.replay",)) == len(graph) - 2
+    assert len(redos) == smc.state["redone_chunks"]
+    if warm:
+        assert not redos
+        assert graph and {s[0] for s in graph} == {"elfi.graph.replay"}
+        assert kinds == [("elfi.graph.replay",)] * len(chunks)
+    else:
+        assert redos
+        redone = [k for k in kinds if "elfi.chunk.redo" in k]
+        assert len(redone) == len(redos)
+        assert all(len(k) == 2 and k[0].startswith("elfi.graph.")
+                   and k[1] == "elfi.chunk.redo" for k in redone)
+        assert () in kinds      # the first proposal chunk runs eagerly
 
 
 # -- the masked redraw -------------------------------------------------------
@@ -464,6 +486,68 @@ def test_masked_redraw_equals_eager_redraw_loop(size):
             redo = GMDistribution.rvs(prep, size=size, prior_logpdf=logpdf,
                                       generator=rng.generator(11, "cpu"))
             assert _equal(redo, eager)
+
+
+@pytest.mark.parametrize("cap", [None, 3])
+def test_proposals_beyond_the_learned_rounds_fall_back_to_the_eager_redo(
+        cpu_capture, small_chunks, monkeypatch, cap):
+    """A run whose mixture needs more redraw rounds than its proposal
+    graph learned from a narrower mixture of the same shapes (so the same
+    graphs and count): its flagged chunk runs again eagerly and its later
+    chunks eagerly, with the eager loop's rows, and the count rises to
+    cover the most a batch took, or to the cap.  The count never falls: the
+    narrow mixture again replays a graph with no chunk run again."""
+    if cap is not None:
+        monkeypatch.setattr(samplers, "_REDRAW_CAP", cap)
+    m = ma2.get_model(seed_obs=4)
+    prep, box, _ = _mixture_and_box(1)
+    wide, narrow = (PreparedGM(prep.means, prep.L * f, prep.weights)
+                    for f in (0.5, 0.1))
+    prog = compile_program(m, ("d", "t1", "t2"),
+                           override_names=("t1", "t2"), device="cpu")
+
+    def run(prep):
+        rej = et.Rejection(m["d"], batch_size=64, seed=3)
+        rej.set_objective(40, n_sim=64 * 12)
+        spec = samplers._GMProposals(("t1", "t2"), 64, box, prep, 7)
+        rej._run_fused(prog, None, start_index=5, overrides_spec=spec)
+        rows = {k: v.clone() for k, v in rej.state["samples"].items()}
+        return rej.state, rows
+
+    def learned_from(prep):
+        """The count that the most redraw rounds a batch of the run took
+        eagerly gives."""
+        spec = samplers._GMProposals(("t1", "t2"), 64, box, prep, 7)
+        for i in range(5, 5 + 12):
+            spec(i)
+        return min(spec.most_rounds + samplers._REDRAW_HEADROOM,
+                   samplers._REDRAW_CAP)
+
+    cpu_capture["on"] = False
+    want = {"narrow": run(narrow)[1], "wide": run(wide)[1]}
+    cpu_capture["on"] = True
+    for _ in range(3):                  # learns, records, captures
+        state, rows = run(narrow)
+    learned = _learned_rounds(prog.replays)
+    assert state["redone_chunks"] == 0
+    assert state["redraw_rounds"] == learned < 3
+    replays = prog.replays.replays
+    state, rows = run(wide)
+    for k in rows:
+        assert _equal(rows[k], want["wide"][k]), k
+    assert prog.replays.replays > replays     # the first chunk's graph
+    assert state["redone_chunks"] == 1      # the later chunks ran eagerly
+    assert state["redraw_rounds"] == learned
+    rose = _learned_rounds(prog.replays)
+    assert rose > learned
+    assert rose == (cap if cap is not None else learned_from(wide))
+    for _ in range(2):
+        state, rows = run(narrow)
+        for k in rows:
+            assert _equal(rows[k], want["narrow"][k]), k
+    assert _learned_rounds(prog.replays) == rose
+    assert state["redone_chunks"] == 0
+    assert state["redraw_rounds"] == rose
 
 
 def test_later_redraw_rounds_leave_earlier_draws_unchanged():

@@ -179,27 +179,36 @@ def test_gnk_kernel_rejection_captured_equals_eager(cuda, eager):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["gauss2d", "ma2", "ma2_kernel"])
+@pytest.mark.parametrize("which", ["gauss2d", "ma2", "ma2_kernel",
+                                   "ma2_cell"])
 def test_smc_captured_equals_eager(cuda, eager, which):
+    """``ma2_cell``: the benchmark's ``ma2-smc`` shapes (batch 10,000,
+    1,000 samples, thresholds 0.7, 0.2, 0.05, ``seed_obs=271``)."""
     if which == "gauss2d":
         m = gauss.get_model(n_obs=50, true_params=[4.0, 2.0], nd_mean=True,
                             cov_matrix=np.eye(2))
         names = ("d", "mu_0", "mu_1")
         kw = dict(thresholds=[2.0, 1.0, 0.5, 0.3])
-        bs = 16384
+        bs, n = 16384, 1000
+    elif which == "ma2_cell":
+        m = ma2.get_model(seed_obs=271)
+        names = ("d", "t1", "t2")
+        kw = dict(thresholds=[0.7, 0.2, 0.05])
+        bs, n = 10000, 1000
     else:
         m = (ma2 if which == "ma2" else ma2_kernel).get_model(seed_obs=4)
         names = ("d", "t1", "t2")
         kw = dict(quantiles=[0.5, 0.2, 0.2])
-        bs = 4096
+        bs, n = 4096, 1000
     names = tuple(n for n in names if n in m.dag)
 
     def run():
         smc = et.SMC(m["d"], batch_size=bs, seed=4, device=cuda)
-        return smc, smc.sample(1000, bar=False, **kw)
+        return smc, smc.sample(n, bar=False, **kw)
 
     _, ref = eager(run)
-    run()        # records and captures the rounds' chunks
+    # learns the redraw rounds, records and captures the rounds' chunks
+    warm, _ = run()
     smc, got = run()
     assert len(got.populations) == len(ref.populations)
     for pg, pr in zip(got.populations, ref.populations):
@@ -210,11 +219,13 @@ def test_smc_captured_equals_eager(cuda, eager, which):
         override_names=tuple(sorted(smc.parameter_names)),
         device=cuda).replays
     assert graphs.replays > 0
+    # the warm-up's proposals again: every batch within the learned rounds
+    assert smc.state["redone_chunks"] == 0
     if which == "gauss2d":      # no proposal leaves its wide prior
-        assert smc.state["redone_chunks"] == 0
-    else:   # MA2's leave the triangle: each round's first chunk is
-        # replayed and redone, the rest of the round runs eagerly
-        assert smc.state["redone_chunks"] > 0
+        assert warm.state["redone_chunks"] == 0
+        assert smc.state["redraw_rounds"] == 0
+    else:   # MA2's leave the triangle: the graphs hold redraw rounds
+        assert smc.state["redraw_rounds"] > 0
 
 
 def _sync_guarded(fn):
