@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from ..utils.profiling import annotate
 from .kernels import topn as _topn
 
 __all__ = ["sort_key", "accept_mask", "make_merge_fn", "init_buffers",
@@ -161,13 +162,18 @@ def merge_parts(parts, n, device):
     ``"__pos"`` (-1 on the initial padding), and the result keeps the rows
     and the order of one merge over every batch in turn: ascending key,
     ties to the earlier simulation, the padding before any rejected row.
-    A single buffer without ``"__pos"`` is returned as it is."""
+    A single buffer without ``"__pos"`` is returned as it is; otherwise
+    the merge, the copies onto ``device`` included, is one span
+    ``elfi.merge_parts``."""
     if not parts:
         return None
     if len(parts) == 1 and "__pos" not in parts[0]:
         return {k: v.to(device) for k, v in parts[0].items()}
-    cat = {k: torch.cat([p[k].to(device) for p in parts]) for k in parts[0]}
-    order = torch.sort(cat.pop("__pos"), stable=True).indices
-    by_key = torch.sort(cat["__key"].index_select(0, order), stable=True)
-    order = order.index_select(0, by_key.indices[:n])
-    return {k: v.index_select(0, order) for k, v in cat.items()}
+    with annotate("elfi.merge_parts"):
+        cat = {k: torch.cat([p[k].to(device) for p in parts])
+               for k in parts[0]}
+        order = torch.sort(cat.pop("__pos"), stable=True).indices
+        by_key = torch.sort(cat["__key"].index_select(0, order),
+                            stable=True)
+        order = order.index_select(0, by_key.indices[:n])
+        return {k: v.index_select(0, order) for k, v in cat.items()}

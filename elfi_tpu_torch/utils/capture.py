@@ -39,6 +39,7 @@ replay).
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 
 import numpy as np
@@ -48,11 +49,15 @@ from . import rng
 from .profiling import annotate
 
 __all__ = ["Recorder", "Graph", "Replays", "side_stream", "on_side_stream",
-           "counted", "count", "hold", "enabled", "record", "pack_keys"]
+           "on_device", "counted", "count", "hold", "enabled", "record",
+           "pack_keys", "CAP"]
 
 #: capture the fused loops and ``CompiledProgram.jitted`` on a CUDA device;
 #: False runs them eagerly (to compare the two)
 _ENABLED = True
+
+#: the keys a :class:`Replays` keeps by default
+CAP = 8
 
 _COUNTED = []
 _streams = {}
@@ -98,6 +103,15 @@ def side_stream(device):
     if s is None:
         s = _streams[index] = torch.cuda.Stream(index)
     return s
+
+
+def on_device(device):
+    """Context manager: ``device`` is the current CUDA device inside (where
+    a graph is captured and replayed, and where its events are recorded);
+    nothing for another device."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 class on_side_stream:
@@ -288,6 +302,16 @@ class Replays:
     on those paths (the first chunk's and the steady one's; one a BSL
     chain), so a cap of 8 bounds a program at about 1.9 GiB.
 
+    Over a device list each card's program (``prog.on(card)``) keeps its
+    own graphs, captured on that card, in that card's memory; a key holds
+    the card's position in the list.  One card named several times keeps
+    the graphs of all its positions in one object, whose cap the chunk
+    loop raises to :data:`CAP` times the positions that name it (a
+    first-chunk and a steady key each).  MA2 rejection on the kernel
+    graph at batch 2**24, four batches a card's share: 8.51 GB of graph
+    pools for the eight graphs of one H100 named four times, so about
+    2.1 GB a card for its two (NVIDIA H100 80GB HBM3, 700 W).
+
     ``fn(state, start) -> (new_state, extra)``: ``state`` is a dict of
     tensors, ``new_state`` a dict (what the function carries to the next
     call), ``extra`` anything of tensors.  A graph holds static copies of
@@ -304,7 +328,7 @@ class Replays:
     branch it takes: ``elfi.graph.record``, ``elfi.graph.capture`` (the
     capture and its first replay) or ``elfi.graph.replay``."""
 
-    def __init__(self, cap=8):
+    def __init__(self, cap=CAP):
         self.entries = collections.OrderedDict()
         self.buffers = {}
         #: what callers learn from a first eager call (shapes)

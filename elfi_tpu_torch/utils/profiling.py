@@ -16,7 +16,10 @@ The port's spans, all named ``elfi.*`` (one host thread; a span lies
 inside the spans open when it starts): ``elfi.sampler.init`` (an
 inference method's base built), ``elfi.sample`` (a sampler's call),
 ``elfi.chunk`` (a chunk of the fused loop) and ``elfi.chunk.redo`` (a
-flagged chunk run again eagerly), ``elfi.graph.record`` / ``.capture`` /
+flagged chunk run again eagerly), ``elfi.card`` (one card's share of a
+chunk over a device list: its eager batches and merges, or its graph),
+``elfi.merge_parts`` (the device list's last merge, the copies onto the
+first device included), ``elfi.graph.record`` / ``.capture`` /
 ``.replay`` (a call into :class:`~elfi_tpu_torch.utils.capture.Replays`,
 by the branch it takes), ``elfi.proposal`` (an eager SMC batch's
 proposal draw), ``elfi.host_read`` (the fused loops waiting on the
