@@ -4351,10 +4351,12 @@ def capture_smc(device, name, node, batch, n, **kw):
     equal bit for bit; per mode the wall of a run (captures included), its
     device ms and busy share from a profiled run, host launches a chunk,
     captures, the chunks run again for a redraw (in the warm-up and in
-    the timed run) and the redraw rounds the timed run's graphs held."""
+    the timed run), the redraw rounds the timed run's graphs held, its
+    masked proposal batches and the rounds of those that ran."""
     import elfi_tpu_torch as et
     from elfi_tpu_torch.methods.samplers import _FUSED_CHUNK
     from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
+    from elfi_tpu_torch.utils import capture
 
     def run(mode):
         make = (lambda: et.SMC(node, batch_size=batch, seed=4,
@@ -4378,6 +4380,8 @@ def capture_smc(device, name, node, batch, n, **kw):
                     redone_chunks=(warm.state.get("redone_chunks", 0),
                                    smc.state.get("redone_chunks", 0)),
                     redraw_rounds=smc.state.get("redraw_rounds", 0),
+                    masked_batches=smc.state.get("masked_batches", 0),
+                    redraw_rounds_run=smc.state.get("redraw_rounds_run", 0),
                     k1=k1, batches=res.n_batches)
 
     modes = capture_modes(run)
@@ -4402,8 +4406,15 @@ def capture_smc(device, name, node, batch, n, **kw):
         f"{name}: {c['redone_chunks']} chunks redone (warm-up, timed)")
     check(c["redraw_rounds"] == 0 if gauss2d else c["redraw_rounds"] > 0,
           f"{name}: graphs held {c['redraw_rounds']} redraw rounds")
+    # in IF nodes a batch runs only the rounds it needs
+    held = c["redraw_rounds"] * c["masked_batches"]
+    check(c["redraw_rounds_run"] == held if gauss2d or not capture._IF_NODES
+          else c["redraw_rounds_run"] < held,
+          f"{name}: {c['redraw_rounds_run']} of {held} held redraw rounds "
+          "ran")
     scope = ("every chunk of its rounds replayed, no redraw round" if
              gauss2d else f"{c['redraw_rounds']} redraw rounds learned, "
+             f"{c['redraw_rounds_run']} of {held} held ran, "
              "every chunk of its rounds replayed")
     log(f"capture, {name} ({scope}): captured equals eager bit for bit; "
         + "; ".join(f"{m}: {v!r}" for m, v in modes.items()))

@@ -95,10 +95,14 @@ _PROPOSAL_SALT = 0x9E3779B9
 #: eagerly and raises the count.  scripts/torch_capture_ab.py on an
 #: NVIDIA H100 80GB HBM3 at 700.00 W, MA2 SMC at batch 10000 (1000
 #: samples, thresholds 0.7, 0.2, 0.05): the eager loop took 2-6 rounds a
-#: batch (512 batches); a round costs a run 2.9 ms of wall (32 batches
-#: in two graphs; walls at headrooms 0, 8, 16: counts 7, 12, 20), a rise
-#: of the count 0.3-0.4 s once (a redone chunk, a graph recorded and
-#: captured).
+#: batch (512 batches); a held round that ran on every batch cost a run
+#: 2.9 ms of wall (32 batches in two graphs; walls at headrooms 0, 8, 16:
+#: counts 7, 12, 20), a rise of the count 0.3-0.4 s once (a redone chunk,
+#: a graph recorded and captured).  With CUDA-graph conditional nodes
+#: (the CUDA 12.4 runtime or later) a batch runs only the rounds it needs
+#: and skips the rest of its held rounds on the card: holding 6, 12 or 20
+#: rounds ran 29.3, 29.2 and 29.3 ms a run (every held round run: 35.6 and
+#: 52.2 ms at 6 and 12).
 #: Over 3 windows of 400 runs from a fresh model, headrooms 0, 1, 2 rose
 #: 5, 4 and 2 times and ran 41.8, 43.6 and 42.7 ms a run, a difference
 #: the windows' spread (7 %) does not resolve; but at 0 the rises come in
@@ -106,10 +110,11 @@ _PROPOSAL_SALT = 0x9E3779B9
 #: warm-up), each run that rises taking 0.25-0.8 s, and 2 keeps them out.
 _REDRAW_HEADROOM = 2
 #: the most redraw rounds a graph holds; a batch that needs more keeps
-#: its chunk's eager redo.  At MA2 SMC's batch 10000, 32 rounds cost a run
-#: 93 ms, less than the eager fallback of its two proposal chunks (123 ms
-#: a run: 165 against 42 ms, the same card), and twice the most a batch
-#: took in the runs measured (16, MA2 SMC at batch 2000).
+#: its chunk's eager redo.  At MA2 SMC's batch 10000, 32 rounds run on
+#: every batch cost a run 93 ms (without conditional nodes), less
+#: than the eager fallback of its two proposal chunks (123 ms a run: 165
+#: against 42 ms, the same card), and twice the most a batch took in the
+#: runs measured (16, MA2 SMC at batch 2000).
 _REDRAW_CAP = 32
 
 
@@ -152,11 +157,13 @@ class _ChunkLoop:
     mixture are device tensors kept with the graphs, rewritten each run,
     so one graph serves any threshold and every round.  SMC proposals
     draw a learned number of masked prior-support redraw rounds inside
-    the graph (:meth:`.utils.GMDistribution.rvs_masked`), kept with the
+    the graph (:meth:`.utils.GMDistribution.rvs_masked`, each round in an
+    IF node that skips it once every row is inside), kept with the
     graphs (``replays.memo``) and part of the graph's key: an eager
     proposal chunk raises it to the most rounds one of its batches took
     plus ``_REDRAW_HEADROOM``, at most ``_REDRAW_CAP``.  The chunk's flag
-    that a batch needed more is read with its acceptance count, and such
+    that a batch needed more, and the rounds its batches ran, are read
+    with its acceptance count, and such
     a chunk is run again eagerly from the state it started from, which
     the graph saves, with the eager redraw loop; the run's later chunks
     run eagerly, and the next run (the next round) takes the graph of the
@@ -213,6 +220,9 @@ class _ChunkLoop:
         self.eager_proposals = False
         #: the most redraw rounds a graph of this run held
         self.held = 0
+        #: the proposal batches this run's graphs drew with masked rounds,
+        #: and the rounds those ran
+        self.masked_batches = self.rounds_run = 0
         self.parts = [None] * self.D
         self.merged = [0] * self.D
         self.unroll = replays.memo.get(("unroll", self.fns[0])) \
@@ -302,12 +312,14 @@ class _ChunkLoop:
             self.replays.memo[self.rounds_key] = min(
                 _REDRAW_CAP, most + _REDRAW_HEADROOM)
 
-    def _body(self, parts, i0, length, rounds, card=None, first=None):
+    def _body(self, parts, i0, length, rounds, card=None, first=None,
+              ran=None):
         """Queue the chunk at batch ``i0`` from the buffers ``parts``, the
         proposals drawn with ``rounds`` masked redraw rounds (None: the
-        eager redraw loop); returns (the new buffers, each device's
-        acceptance counts, each masked proposal's flag that its rows are
-        in the prior's support).  ``card``: only the batches and merges
+        eager redraw loop), each round that runs adding 1 to ``ran``;
+        returns (the new buffers, each device's acceptance counts, each
+        masked proposal's flag that its rows are in the prior's
+        support).  ``card``: only the batches and merges
         of that position (None: every position's, in batch order);
         ``first``: a device scalar holding ``i0`` that ``__pos`` counts
         from (a graph's, with ``rows``, the row indices 0 .. B - 1 of
@@ -334,7 +346,7 @@ class _ChunkLoop:
             dev = self.devices[k]
             ov = {}
             if self.spec is not None and rounds is not None:
-                ov, ok = self.spec.masked(i, rounds)
+                ov, ok = self.spec.masked(i, rounds, ran)
                 oks.append(ok)
             elif self.spec is not None:
                 ov = self.spec(i)
@@ -393,12 +405,16 @@ class _ChunkLoop:
                          for k, v in state.items()))
 
             def fn(state, i0):
+                dev = self.devices[0]
+                ran = torch.zeros((), dtype=torch.int64, device=dev) \
+                    if masked else None
                 parts, accs, oks = self._body([state or None], i0, length,
-                                              rounds)
+                                              rounds, ran=ran)
                 bad = (~torch.stack(oks)).sum() if oks else torch.zeros(
-                    (), dtype=torch.int64, device=self.devices[0])
-                return parts[0], torch.stack([torch.stack(accs[0]).sum(),
-                                              bad])
+                    (), dtype=torch.int64, device=dev)
+                return parts[0], torch.stack(
+                    [torch.stack(accs[0]).sum(), bad]
+                    + ([ran] if masked else []))
 
             bases = {"node": self.seed}
             if masked:
@@ -408,14 +424,20 @@ class _ChunkLoop:
                                       self.devices[0], snapshot=masked)
             stat, before = extra if masked else (extra, None)
             self.parts = [new]
-            self.merged = merged
             if not (read or masked):
+                self.merged = merged
                 return 0
             with annotate("elfi.host_read"):
-                accepted, bad = stat.tolist()
+                accepted, bad, *ran = stat.tolist()
+            if masked:
+                self.masked_batches += length
+                self.rounds_run += ran[0]
             if bad:
                 # a proposal needed more redraw rounds than the graph holds:
-                # the chunk again, eagerly, from the state it started from
+                # the chunk again, eagerly, from the state it started from:
+                # its buffers, and the rows merged before it, which set its
+                # merges as they set the graph's (merged after it, a first
+                # chunk's flat merges would be culled ones)
                 with annotate("elfi.chunk.redo"):
                     parts, accs, _ = self._body([dict(before) or None], i0,
                                                 length, None)
@@ -424,6 +446,7 @@ class _ChunkLoop:
                     self.eager_proposals = True
                     self._learn()
                     accepted = _accepted(accs)
+            self.merged = merged
             return accepted if read else 0
 
     def _cards(self, start, length, read):
@@ -693,7 +716,11 @@ class Rejection(Sampler):
         run eagerly.  ``state["card_batches"]`` and
         ``state["card_replays"]`` list, a device of the list each, the
         batches it ran and the chunk shares it ran from a graph.
-        """
+        ``state["redraw_rounds"]`` is the most masked redraw rounds a graph
+        of the run held, ``state["masked_batches"]`` the proposal batches
+        its graphs drew with them, and ``state["redraw_rounds_run"]`` the
+        rounds of those that ran (the others were skipped: every row was
+        inside)."""
         if seed is None:
             seed = self.seed
         devices = getattr(self.client, "mesh", None) or [self.device]
@@ -736,6 +763,8 @@ class Rejection(Sampler):
         self.state["n_sim"] = done * self.batch_size
         self.state["redone_chunks"] = loop.redone
         self.state["redraw_rounds"] = loop.held
+        self.state["masked_batches"] = loop.masked_batches
+        self.state["redraw_rounds_run"] = loop.rounds_run
         self.state["card_batches"], self.state["card_replays"] = \
             loop.card_counts(done)
         self.state["samples"] = topk.merge_parts(parts, n, self.device)
@@ -831,13 +860,15 @@ class _GMProposals:
             self.most_rounds = max(self.most_rounds, rounds)
             return self._columns(params)
 
-    def masked(self, batch_index, rounds):
+    def masked(self, batch_index, rounds, counter=None):
         """(the proposals, a 0-d flag that every row is in the prior's
-        support after ``rounds`` masked redraw rounds), with no host
-        read."""
+        support after at most ``rounds`` masked redraw rounds), with no
+        host read in a graph; each round that runs adds 1 to
+        ``counter``."""
         params, ok = GMDistribution.rvs_masked(
             self.proposal, self.batch_size, self.prior_logpdf,
-            batch_generator(self.key, batch_index, self.device), rounds)
+            batch_generator(self.key, batch_index, self.device), rounds,
+            counter)
         return self._columns(params), ok
 
 
@@ -938,6 +969,8 @@ class SMC(Sampler):
             self.state["redraw_rounds"] = max(
                 self.state.get("redraw_rounds", 0),
                 rej.state["redraw_rounds"])
+            for k in ("masked_batches", "redraw_rounds_run"):
+                self.state[k] = self.state.get(k, 0) + rej.state[k]
             self.state["n_sim"] += rej.state["n_sim"]
             self.state["n_batches"] += rej.state["n_batches"]
             if pb:

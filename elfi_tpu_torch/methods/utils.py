@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..ops.distributions import solve_lower_rows
+from ..utils import capture
 from ..utils.profiling import annotate
 
 __all__ = [
@@ -211,26 +212,43 @@ class GMDistribution:
             "Could not draw proposal points inside the prior support")
 
     @classmethod
-    def rvs_masked(cls, prepared, size, prior_logpdf, generator, rounds):
-        """:meth:`rvs` with a fixed number of redraw rounds and no host
-        read, the counterpart of the JAX package's ``rvs_traced``: the first
-        draw, then ``rounds`` draws of which each replaces the rows still
-        outside the prior's support.  Returns (the draws, a 0-d flag that
+    def rvs_masked(cls, prepared, size, prior_logpdf, generator, rounds,
+                   counter=None):
+        """:meth:`rvs` with at most ``rounds`` redraw rounds, the
+        counterpart of the JAX package's ``rvs_traced``: the first draw,
+        then rounds of which each replaces the rows still outside the
+        prior's support, each run only while some row is outside
+        (:func:`~elfi_tpu_torch.utils.capture.run_if`: in a CUDA graph an
+        IF node, round ``k + 1``'s inside round ``k``'s, so no host read;
+        eagerly a host read a round).  Returns (the draws, a 0-d flag that
         every row is inside).  Each round draws from the generator's next
         offsets, so the rounds the eager loop takes draw what it draws, and
-        a round after every row is inside changes nothing: where the flag
-        is set the draws are :meth:`rvs`'s, bit for bit."""
+        a round after every row is inside would change nothing: where the
+        flag is set the draws are :meth:`rvs`'s, bit for bit.  Each round
+        that runs adds 1 to ``counter``, a 0-d int64 tensor, if given."""
         out = cls._draw(prepared, size, generator)
 
-        def inside(o):
-            return torch.isfinite(prior_logpdf(o)) \
-                & torch.isfinite(o).all(dim=1)
+        def inside(o, into=None):
+            return torch.logical_and(torch.isfinite(prior_logpdf(o)),
+                                     torch.isfinite(o).all(dim=1), out=into)
 
+        # written in place: a graph reads them after the rounds' nodes
         ok = inside(out)
-        for _ in range(rounds):
-            out = torch.where(ok[:, None], out,
-                              cls._draw(prepared, size, generator))
-            ok = inside(out)
+
+        def outside():
+            return ~ok.all()
+
+        def redraw(k):
+            torch.where(ok[:, None], out,
+                        cls._draw(prepared, size, generator), out=out)
+            inside(out, into=ok)
+            if counter is not None:
+                counter.add_(1)
+            if k + 1 < rounds:
+                capture.run_if(outside, lambda: redraw(k + 1))
+
+        if rounds > 0:
+            capture.run_if(outside, lambda: redraw(0))
         return out, ok.all()
 
     @classmethod

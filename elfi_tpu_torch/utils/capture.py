@@ -34,12 +34,19 @@ Kernel wrappers count their launches through :func:`count`: ``launches``
 (launched by the host), ``captured`` (recorded into a graph) and
 ``graph_launches`` (launched by replays: a graph's captured count each
 replay).
+
+:func:`run_if` runs work only where a device flag holds: in a graph being
+captured, inside a CUDA-graph IF node that the card evaluates at each
+replay, with no host read (``csrc/graph_if.cu``, through the CUDA
+runtime, since torch may have no API for conditional nodes).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
+import functools
 import gc
 
 import numpy as np
@@ -50,7 +57,7 @@ from .profiling import annotate
 
 __all__ = ["Recorder", "Graph", "Replays", "side_stream", "on_side_stream",
            "on_device", "counted", "count", "hold", "enabled", "record",
-           "pack_keys", "CAP"]
+           "pack_keys", "run_if", "CAP"]
 
 #: capture the fused loops and ``CompiledProgram.jitted`` on a CUDA device;
 #: False runs them eagerly (to compare the two)
@@ -61,6 +68,20 @@ CAP = 8
 
 _COUNTED = []
 _streams = {}
+#: CUDA-graph conditional nodes: torch built with the CUDA 12.4 runtime or
+#: later (a body captured into an IF node, :func:`run_if`)
+_IF_NODES = torch.version.cuda is not None and tuple(
+    int(v) for v in torch.version.cuda.split(".")[:2]) >= (12, 4)
+#: the IF nodes captured so far (:attr:`Graph.conditionals`)
+_if_nodes = 0
+#: the stream that captures IF nodes' bodies, per device index (made by
+#: ``csrc/graph_if.cu``, kept for the process)
+_body_streams = {}
+#: (the memory pool of the graph being captured, its device) while
+#: :class:`Graph` captures, and the pool that takes this thread's
+#: allocations
+_capturing = None
+_routed = None
 #: what the graph being captured must keep alive (see :func:`hold`)
 _held = None
 
@@ -92,6 +113,103 @@ def hold(obj):
     kernel's cached scratch)."""
     if _held is not None:
         _held.append(obj)
+
+
+@functools.cache
+def _if_lib():
+    """Build (at first use) and bind ``csrc/graph_if.cu``."""
+    from ..ops.kernels import _build
+    lib = _build.load("graph_if", ("graph_if.cu",))
+    lib.elfi_if_begin.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.POINTER(ctypes.c_void_p)] * 2
+    lib.elfi_if_begin.restype = ctypes.c_int
+    lib.elfi_if_end.argtypes = [ctypes.c_void_p] * 3
+    lib.elfi_if_end.restype = ctypes.c_int
+    lib.elfi_if_stream.argtypes = [ctypes.c_int]
+    lib.elfi_if_stream.restype = ctypes.c_void_p
+    lib.elfi_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.elfi_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _if_call(entry, *args):
+    """``entry`` of ``csrc/graph_if.cu`` called; raises on a CUDA error."""
+    from ..ops.kernels import _build
+    lib = _if_lib()
+    _build.raise_on(getattr(lib, entry)(*args), lib, entry)
+
+
+def _route_to_pool():
+    """From now to the end of the capture, this thread's allocations on
+    the capture's device go to the graph's private pool: torch routes a
+    capture's allocations by its capture id, and a stream that captures an
+    IF node's body has its own."""
+    global _routed
+    pool, device = _capturing
+    if _routed == pool:
+        return
+    torch._C._cuda_endAllocateToPool(device, pool)
+    torch._C._cuda_beginAllocateCurrentThreadToPool(device, pool)
+    # the second begin counted one more user of the pool, which the
+    # graph's end would not release
+    torch._C._cuda_releasePool(device, pool)
+    _routed = pool
+
+
+def _body_stream(device):
+    """The stream that captures IF nodes' bodies on ``device``."""
+    stream = _body_streams.get(device)
+    if stream is None:
+        made = _if_lib().elfi_if_stream(device)
+        if not made:
+            raise RuntimeError(f"no stream for IF nodes' bodies on "
+                               f"cuda:{device}")
+        stream = _body_streams[device] = torch.cuda.ExternalStream(
+            made, device=device)
+    return stream
+
+
+def run_if(pred, body):
+    """``body()`` where ``pred()``, a 0-d bool tensor, holds.
+
+    While :class:`Graph` captures on a CUDA device, ``body`` is captured
+    into an IF node of the graph: each replay evaluates the predicate on
+    the card and runs or skips the body there.  Tensors that the graph
+    reads after the body must be written in place (the graph reads fixed
+    addresses), and a body may hold further :func:`run_if` calls (nested
+    nodes).  Where the running CUDA has no conditional nodes the body is
+    captured unconditionally (and ``pred`` not called), so it must change
+    nothing where the predicate is false.  Outside a capture the predicate
+    is read on the host."""
+    global _if_nodes
+    if _capturing is None:
+        with annotate("elfi.host_read"):
+            holds = bool(pred())
+        if holds:
+            body()
+        return
+    if not _IF_NODES:
+        body()
+        return
+    flag = pred()
+    if flag.dtype != torch.bool or flag.numel() != 1:
+        raise ValueError(f"run_if takes a one-element bool predicate, got "
+                         f"{flag.dtype} of shape {tuple(flag.shape)}")
+    _route_to_pool()
+    device = _capturing[1]
+    inner = _body_stream(device)
+    outer = torch.cuda.current_stream(device)
+    # inside a body (the body stream's own node): the enclosing body's
+    # capture, resumed after the node
+    enclosing, node = ctypes.c_void_p(), ctypes.c_void_p()
+    _if_call("elfi_if_begin", outer.cuda_stream, flag.data_ptr(),
+             inner.cuda_stream, ctypes.byref(enclosing), ctypes.byref(node))
+    try:
+        with torch.cuda.stream(inner):
+            body()
+    finally:
+        _if_call("elfi_if_end", inner.cuda_stream, enclosing, node)
+    _if_nodes += 1
 
 
 def side_stream(device):
@@ -224,15 +342,21 @@ class Graph:
         for g in (*self.gens, *persistent):
             graph.register_generator_state(g)
         before = [f.captured for f in _COUNTED]
+        if_nodes = _if_nodes
         source = _Replayer(self, int(start))
-        global _held
+        global _held, _capturing, _routed
         self.held = _held = []
+        # the graph's own pool, named, so that a body of an IF node can
+        # allocate from it too (:func:`run_if`)
+        pool = torch.cuda.graph_pool_handle()
+        _capturing = (pool, device.index if device.index is not None
+                      else torch.cuda.current_device())
         # no garbage collection inside the capture: a collected graph's
         # pool would be released while the stream is captured
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            graph.capture_begin()
+            graph.capture_begin(pool=pool)
             try:
                 with rng.stream_source(source):
                     self.out = fn()
@@ -244,7 +368,7 @@ class Graph:
                 raise
             graph.capture_end()
         finally:
-            _held = None
+            _held = _capturing = _routed = None
             if gc_was_on:
                 gc.enable()
         if source.i != len(self.slots):
@@ -256,6 +380,8 @@ class Graph:
         self.fn = fn
         self.kernels = [(f, f.captured - b)
                         for f, b in zip(_COUNTED, before) if f.captured != b]
+        #: the IF nodes captured into the graph (:func:`run_if`)
+        self.conditionals = _if_nodes - if_nodes
         self.replays = 0
         if self.need_keys:
             self._pinned = torch.empty((2, len(self.slots)),

@@ -10,7 +10,7 @@ in ``utils/capture.py``).
 
     python3 scripts/torch_capture_ab.py [--out build/capture_ab.json]
                                         [--reps 3]
-                                        [--phases chunk,redraw,bsl,memory]
+                                        [--phases chunk,redraw,skip,bsl,memory]
 
 Chunk: MA2 rejection at the main path's point (5000 samples, 2**28
 simulations, ``seed_obs=271``) on the plain graph at 2**17 and the kernel
@@ -37,6 +37,13 @@ Last, MA2 SMC at batch 2000, whose rounds take several chunks: after a
 redone chunk, the round's later chunks running eagerly (the port's
 choice) against taking the graph of the raised count, each turn four runs
 on a fresh model (so they learn and redo), ``2 * --reps`` turns.
+
+Skipped rounds: at the ``ma2-smc`` shapes, warm captured runs under
+headrooms 2, 8 and 16 with each masked redraw round in a CUDA-graph IF
+node, and under headrooms 2 and 8 with every held round run (as without
+conditional nodes), each arm on its own model, ``--seeds``
+runs a turn, ``--reps`` turns: the walls, the count each learned, and the
+rounds its proposal batches ran against those they held.
 
 BSL block: the chain at the JAX bench's point (MA2, 500 simulations a
 step, 1000 steps, Warton shrinkage 0.3) eagerly and captured in blocks of
@@ -127,22 +134,25 @@ def equal(a, b):
 
 
 def with_settings(fn, chunk=None, headroom=None, captured=True,
-                  block=None):
+                  block=None, if_nodes=None):
     from elfi_tpu_torch.utils import capture
 
     def run():
         saved = (samplers._FUSED_CHUNK, samplers._REDRAW_HEADROOM,
-                 capture._ENABLED, bsl_method._CHAIN_BLOCK)
+                 capture._ENABLED, bsl_method._CHAIN_BLOCK,
+                 capture._IF_NODES)
         samplers._FUSED_CHUNK = chunk or saved[0]
         samplers._REDRAW_HEADROOM = saved[1] if headroom is None \
             else headroom
         capture._ENABLED = captured
         bsl_method._CHAIN_BLOCK = block or saved[3]
+        capture._IF_NODES = saved[4] if if_nodes is None else if_nodes
         try:
             return fn()
         finally:
             (samplers._FUSED_CHUNK, samplers._REDRAW_HEADROOM,
-             capture._ENABLED, bsl_method._CHAIN_BLOCK) = saved
+             capture._ENABLED, bsl_method._CHAIN_BLOCK,
+             capture._IF_NODES) = saved
     return run
 
 
@@ -280,8 +290,8 @@ def smc_arms(arms, seeds, reps, cold=False, warm=1):
     ``make`` building a fresh model (its own graphs and count): made once,
     or with ``cold`` afresh every turn; each made model first runs
     ``warm`` untimed runs.  Every arm runs the same seeds."""
-    out = {k: dict(walls_s=[], redone_chunks=[], learned_rounds=[])
-           for k in arms}
+    out = {k: dict(walls_s=[], redone_chunks=[], learned_rounds=[],
+                   rounds_run=[], rounds_held=[]) for k in arms}
     made = {}
     order = list(arms)
     for r in range(reps):
@@ -300,6 +310,11 @@ def smc_arms(arms, seeds, reps, cold=False, warm=1):
             o["redone_chunks"].append(
                 sum(s.state.get("redone_chunks", 0) for s in smcs))
             o["learned_rounds"].append(learned_rounds(smcs[-1]))
+            o["rounds_run"].append(sum(s.state.get("redraw_rounds_run", 0)
+                                       for s in smcs))
+            o["rounds_held"].append(sum(
+                s.state.get("redraw_rounds", 0)
+                * s.state.get("masked_batches", 0) for s in smcs))
     return out
 
 
@@ -392,11 +407,30 @@ def redraw_phase(dev, plain, g2, reps, seeds):
     return report
 
 
+def skip_phase(dev, reps, seeds):
+    """Warm captured ``ma2-smc`` runs holding more rounds, with and
+    without IF nodes (module docstring)."""
+    _, run = smc_points(dev, None, None)["ma2-smc"]
+
+    def arm(h, if_nodes):
+        def make():
+            nd = ma2.get_model(seed_obs=SEED_OBS)["d"]
+            return lambda seed: with_settings(
+                lambda: run(nd, seed), headroom=h, if_nodes=if_nodes)()[0]
+        return make
+    arms = {f"if nodes, headroom {h}": arm(h, True) for h in (2, 8, 16)}
+    arms.update({f"every round, headroom {h}": arm(h, False)
+                 for h in (2, 8)})
+    out = smc_arms(arms, seeds, reps, warm=3)
+    print("ma2-smc skipped rounds", out, flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/capture_ab.json")
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--phases", default="chunk,redraw,bsl,memory")
+    ap.add_argument("--phases", default="chunk,redraw,skip,bsl,memory")
     ap.add_argument("--seeds", type=int, default=8,
                     help="SMC runs of each redraw measurement")
     args = ap.parse_args()
@@ -446,6 +480,8 @@ def main():
 
     if "redraw" in phases:
         report.update(redraw_phase(dev, plain, g2, args.reps, args.seeds))
+    if "skip" in phases:
+        report["skip_ma2-smc"] = skip_phase(dev, args.reps, args.seeds)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(report, indent=1))
     print(json.dumps(report), flush=True)

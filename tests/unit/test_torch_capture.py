@@ -346,6 +346,45 @@ def test_smc_rounds_replayed_equal_eager(cpu_capture, small_chunks, warm):
                 if isinstance(g, tuple)]) <= 3
 
 
+@pytest.mark.parametrize("warm", [False, True])
+def test_smc_redraw_rounds_run_equal_eager_rounds(cpu_capture, small_chunks,
+                                                  monkeypatch, warm):
+    """``state["redraw_rounds_run"]``: over the masked proposal batches of
+    a run's chunk graphs, the rounds the eager loop takes on each, at most
+    the rounds its graph held; a warm run's graphs hold every batch's, and
+    skip the rest of their held rounds.  The populations stay the eager
+    run's."""
+    m = ma2.get_model(seed_obs=4)
+    kw = dict(quantiles=[0.5, 0.05, 0.05])
+    cpu_capture["on"] = False
+    _, eager = _smc(m, kw)
+    cpu_capture["on"] = True
+    for _ in range(3 if warm else 0):
+        _smc(m, kw)             # learns the rounds, records, captures
+    drawn = []
+    masked = GMDistribution.rvs_masked
+
+    def noted(cls, prep, size, logpdf, generator, rounds, counter=None):
+        # the eager loop on a copy of the batch's generator
+        twin = torch.Generator(device=generator.device)
+        twin.set_state(generator.get_state())
+        took = GMDistribution.rvs_counted(prep, size, logpdf, twin)[1]
+        drawn.append((took, rounds))
+        return masked(prep, size, logpdf, generator, rounds, counter)
+
+    monkeypatch.setattr(GMDistribution, "rvs_masked", classmethod(noted))
+    smc, got = _smc(m, kw)
+    _same_populations(got, eager, ("d", "t1", "t2"))
+    assert smc.state["masked_batches"] == len(drawn) > 0
+    assert smc.state["redraw_rounds_run"] == sum(
+        min(took, rounds) for took, rounds in drawn)
+    if warm:
+        assert smc.state["redone_chunks"] == 0
+        assert all(took <= rounds for took, rounds in drawn)
+        assert smc.state["redraw_rounds_run"] < (
+            smc.state["redraw_rounds"] * smc.state["masked_batches"])
+
+
 def test_gauss2d_smc_rounds_replayed_equal_eager(cpu_capture, small_chunks):
     """The bench's gauss2d SMC (batch 16384, wide uniform priors): no
     proposal leaves the support, so the learned redraw rounds stay 0, the
@@ -466,26 +505,49 @@ def _mixture_and_box(seed=0):
     return prep, box_logpdf, calls
 
 
+def _unconditional_masked(prep, size, logpdf, generator, rounds):
+    """``GMDistribution.rvs_masked`` as it ran before its rounds were
+    conditional: every round runs, on fresh tensors."""
+    def inside(o):
+        return torch.isfinite(logpdf(o)) & torch.isfinite(o).all(dim=1)
+
+    out = GMDistribution._draw(prep, size, generator)
+    ok = inside(out)
+    for _ in range(rounds):
+        out = torch.where(ok[:, None], out,
+                          GMDistribution._draw(prep, size, generator))
+        ok = inside(out)
+    return out, ok.all()
+
+
 @pytest.mark.parametrize("size", [1, 16, 64])
-def test_masked_redraw_equals_eager_redraw_loop(size):
+@pytest.mark.parametrize("held", ["0", "r-1", "r", "r+5"])
+def test_masked_redraw_equals_eager_redraw_loop(size, held):
+    """At ``held`` rounds against the ``r`` the eager loop took: the rows
+    and the flag of the unconditional loop, the eager loop's rows where
+    the flag is set, and a round counted for each that ran, at most
+    ``r``."""
     prep, logpdf, calls = _mixture_and_box(size)
     eager = GMDistribution.rvs(prep, size=size, prior_logpdf=logpdf,
                                generator=rng.generator(11, "cpu"))
     rounds = len(calls) - 1       # redraw rounds the eager loop took
-    assert size < 16 or rounds > 3
-    for k in (0, rounds - 1, rounds, rounds + 5):
-        if k < 0:
-            continue
-        out, ok = GMDistribution.rvs_masked(prep, size, logpdf,
-                                            rng.generator(11, "cpu"), k)
-        assert bool(ok) == (k >= rounds), k
-        if k >= rounds:
-            assert _equal(out, eager), k
-        else:
-            # the eager redo from the same stream
-            redo = GMDistribution.rvs(prep, size=size, prior_logpdf=logpdf,
-                                      generator=rng.generator(11, "cpu"))
-            assert _equal(redo, eager)
+    assert rounds > (3 if size >= 16 else 0)
+    k = {"0": 0, "r-1": rounds - 1, "r": rounds, "r+5": rounds + 5}[held]
+    ran = torch.zeros((), dtype=torch.int64)
+    out, ok = GMDistribution.rvs_masked(prep, size, logpdf,
+                                        rng.generator(11, "cpu"), k, ran)
+    old, old_ok = _unconditional_masked(prep, size, logpdf,
+                                        rng.generator(11, "cpu"), k)
+    assert _equal(out, old) and _equal(ok, old_ok)
+    assert bool(ok) == (k >= rounds)
+    assert int(ran) == min(k, rounds)
+    if k >= rounds:
+        assert _equal(out, eager)
+    else:
+        # the eager redo from the same stream
+        redo = GMDistribution.rvs(prep, size=size, prior_logpdf=logpdf,
+                                  generator=rng.generator(11, "cpu"))
+        assert _equal(redo, eager)
 
 
 @pytest.mark.parametrize("cap", [None, 3])
@@ -532,7 +594,21 @@ def test_proposals_beyond_the_learned_rounds_fall_back_to_the_eager_redo(
     assert state["redone_chunks"] == 0
     assert state["redraw_rounds"] == learned < 3
     replays = prog.replays.replays
+    # an eager chunk body, the redo too, plans its merges from the rows
+    # merged before its first batch: those of the run's earlier batches
+    merged_at = []
+    body = samplers._ChunkLoop._body
+
+    def noted(self, parts, i0, length, rounds, *args, **kwargs):
+        if rounds is None:
+            merged_at.append((i0, tuple(self.merged)))
+        return body(self, parts, i0, length, rounds, *args, **kwargs)
+
+    monkeypatch.setattr(samplers._ChunkLoop, "_body", noted)
     state, rows = run(wide)
+    monkeypatch.setattr(samplers._ChunkLoop, "_body", body)
+    assert merged_at[0][0] == 5         # the redone first chunk
+    assert merged_at == [(i0, ((i0 - 5) * 64,)) for i0, _ in merged_at]
     for k in rows:
         assert _equal(rows[k], want["wide"][k]), k
     assert prog.replays.replays > replays     # the first chunk's graph
@@ -548,6 +624,27 @@ def test_proposals_beyond_the_learned_rounds_fall_back_to_the_eager_redo(
     assert _learned_rounds(prog.replays) == rose
     assert state["redone_chunks"] == 0
     assert state["redraw_rounds"] == rose
+
+
+def test_run_if_outside_a_capture_reads_the_predicate():
+    """Outside a capture ``run_if`` reads its predicate on the host: the
+    body runs where it holds, nested calls too, and a predicate is not
+    read where its enclosing body does not run."""
+    ran, asked = [], []
+
+    def flag(k, value):
+        def pred():
+            asked.append(k)
+            return torch.tensor(value)
+        return pred
+
+    capture.run_if(flag(0, True), lambda: (
+        ran.append(0),
+        capture.run_if(flag(1, False), lambda: (
+            ran.append(1),
+            capture.run_if(flag(2, True), lambda: ran.append(2)))),
+        capture.run_if(flag(3, True), lambda: ran.append(3))))
+    assert ran == [0, 3] and asked == [0, 1, 3]
 
 
 def test_later_redraw_rounds_leave_earlier_draws_unchanged():

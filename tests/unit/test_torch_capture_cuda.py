@@ -3,7 +3,8 @@ path against the same path run eagerly (``capture._ENABLED = False``), bit
 for bit -- ``CompiledProgram.jitted``, a ``vectorize_traced`` simulator
 (not captured: capture is opt-in), MA2 rejection on both graphs with and
 without a threshold, g-and-k on the kernel graph, SMC on gauss2d and on
-MA2, the BSL chain (under ``torch.cuda.set_sync_debug_mode("error")``) --
+MA2 (its redraw rounds in conditional nodes, and without them), the BSL
+chain (under ``torch.cuda.set_sync_debug_mode("error")``) --
 the kernels K1 and K2 keyed from device memory against their value path,
 and the cull captured in a graph against the cull launched eagerly.
 
@@ -21,7 +22,9 @@ import torch
 
 import elfi_tpu_torch as et
 from elfi_tpu_torch.compile.compiler import compile_program
+from elfi_tpu_torch.methods import samplers
 from elfi_tpu_torch.methods.bsl import method as bsl_method
+from elfi_tpu_torch.methods.utils import GMDistribution
 from elfi_tpu_torch.models import gauss, gnk_kernel, ma2, ma2_kernel
 from elfi_tpu_torch.ops import topk
 from elfi_tpu_torch.ops.kernels import gnk as k2
@@ -180,17 +183,22 @@ def test_gnk_kernel_rejection_captured_equals_eager(cuda, eager):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["gauss2d", "ma2", "ma2_kernel",
-                                   "ma2_cell"])
-def test_smc_captured_equals_eager(cuda, eager, which):
+                                   "ma2_cell", "ma2_cell_unconditional"])
+def test_smc_captured_equals_eager(cuda, eager, monkeypatch, which):
     """``ma2_cell``: the benchmark's ``ma2-smc`` shapes (batch 10,000,
-    1,000 samples, thresholds 0.7, 0.2, 0.05, ``seed_obs=271``)."""
+    1,000 samples, thresholds 0.7, 0.2, 0.05, ``seed_obs=271``), each
+    masked redraw round of a proposal graph in an IF node: the rounds run
+    are the eager loop's.  ``ma2_cell_unconditional``: the same where torch
+    has no conditional nodes (every held round runs), the same rows."""
+    if which == "ma2_cell_unconditional":
+        monkeypatch.setattr(capture, "_IF_NODES", False)
     if which == "gauss2d":
         m = gauss.get_model(n_obs=50, true_params=[4.0, 2.0], nd_mean=True,
                             cov_matrix=np.eye(2))
         names = ("d", "mu_0", "mu_1")
         kw = dict(thresholds=[2.0, 1.0, 0.5, 0.3])
         bs, n = 16384, 1000
-    elif which == "ma2_cell":
+    elif which.startswith("ma2_cell"):
         m = ma2.get_model(seed_obs=271)
         names = ("d", "t1", "t2")
         kw = dict(thresholds=[0.7, 0.2, 0.05])
@@ -206,7 +214,18 @@ def test_smc_captured_equals_eager(cuda, eager, which):
         smc = et.SMC(m["d"], batch_size=bs, seed=4, device=cuda)
         return smc, smc.sample(n, bar=False, **kw)
 
-    _, ref = eager(run)
+    # the redraw rounds the eager loop takes on each proposal batch
+    took = []
+    counted = GMDistribution.rvs_counted
+
+    def noted(cls, *args):
+        out, rounds = counted(*args)
+        took.append(rounds)
+        return out, rounds
+
+    with monkeypatch.context() as patch:
+        patch.setattr(GMDistribution, "rvs_counted", classmethod(noted))
+        _, ref = eager(run)
     # learns the redraw rounds, records and captures the rounds' chunks
     warm, _ = run()
     smc, got = run()
@@ -226,6 +245,20 @@ def test_smc_captured_equals_eager(cuda, eager, which):
         assert smc.state["redraw_rounds"] == 0
     else:   # MA2's leave the triangle: the graphs hold redraw rounds
         assert smc.state["redraw_rounds"] > 0
+    if not which.startswith("ma2_cell"):
+        return
+    held = smc.state["redraw_rounds"]
+    assert smc.state["masked_batches"] == len(took)
+    conditional = which == "ma2_cell"
+    assert smc.state["redraw_rounds_run"] == (
+        sum(took) if conditional else held * len(took))
+    # a graph of proposals holds an IF node a round a batch
+    masked = [(key[7][1], g[1]) for key, g in graphs.entries.items()
+              if isinstance(g, tuple) and key[7] is not None]
+    assert masked and all(rounds == held for rounds, _ in masked)
+    for rounds, graph in masked:
+        assert graph.conditionals == (
+            samplers._FUSED_CHUNK * rounds if conditional else 0)
 
 
 def _sync_guarded(fn):
@@ -324,3 +357,58 @@ def test_cull_in_a_graph_equals_eager(cuda):
             assert torch.equal(out[k], want[k]), k
             assert torch.equal(out[k], flat[k]), k
         assert int(acc) == int(want_acc)
+
+
+@pytest.mark.cuda
+def test_run_if_nests_skips_and_keeps_its_pool(cuda):
+    """``capture.run_if`` 32 deep in one graph: each replay runs the levels
+    down to the first whose flag is false, drawing into the graph's pool
+    inside every body; the pool outlives ``empty_cache`` while the graph
+    lives (the memory freed then, filled, stays as filled), and a dropped
+    graph leaves no memory reserved."""
+    import gc
+    depth = 32
+    count = torch.zeros((), dtype=torch.int64, device=cuda)
+    total = torch.zeros((), device=cuda)
+    flags = torch.ones(depth, dtype=torch.bool, device=cuda)
+
+    def make():
+        def level(k):
+            count.add_(1)
+            total.add_(torch.randn(10000, 2, device=cuda).abs().sum())
+            if k + 1 < depth:
+                capture.run_if(lambda: flags[k + 1], lambda: level(k + 1))
+
+        def fn():
+            capture.run_if(lambda: flags[0], lambda: level(0))
+        with capture.on_side_stream(cuda):
+            return capture.Graph(fn, capture.Recorder(0), 0, cuda)
+
+    graph = make()
+    assert graph.conditionals == (depth if capture._IF_NODES else 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    filled = torch.full((2**26,), 7.0, device=cuda)
+    for stop in (depth, 0, 5, 17, 1, depth):
+        flags.fill_(True)
+        if stop < depth:
+            flags[stop] = False
+        count.zero_()
+        with capture.on_side_stream(cuda):
+            graph.replay({}, 0)
+        torch.cuda.synchronize()
+        assert int(count) == (stop if capture._IF_NODES else depth), stop
+    assert bool(filled.eq(7.0).all())
+    del graph, filled
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(cuda)
+    for _ in range(3):
+        graph = make()
+        with capture.on_side_stream(cuda):
+            graph.replay({}, 0)
+        torch.cuda.synchronize()
+        del graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda) == reserved
