@@ -23,6 +23,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import logging
+import operator
 from math import ceil, inf
 
 import numpy as np
@@ -138,55 +139,56 @@ def _fused_unroll(batch_size, shapes):
 
 
 class _ChunkLoop:
-    """The chunks of one fused rejection run (:meth:`Rejection._run_fused`):
-    each chunk queues its batches' programs and the merges of their outputs
-    into the running top-N of each device.
+    """The chunks of one fused rejection run (:meth:`Rejection._run_fused`)
+    over the run's device list, one device a list of one: each chunk
+    queues its batches' programs and the merges of their outputs into the
+    running top-N of each position, a position's share after another.
+    Position ``k`` takes the batches ``i`` with ``i % D == k`` and merges
+    them into its own buffer; over several devices (``D > 1``) each share
+    is one span ``elfi.card``, and its rows carry their global simulation
+    index (``__pos``) for the last merge across positions.
 
-    On one CUDA device, for a capturable program, a chunk is a CUDA graph
-    (the counterpart of the JAX package's ``chunk_fn``): the merge schedule
-    of a chunk (which merges take how many batches, and which merge flat
-    because the buffer has not taken ``n`` rows yet: a host decision) is
-    part of its graph's key, so the first chunks, which merge flat, and the
-    steady state are separate graphs.  Each key's first chunk runs eagerly
-    and recorded, its second captures the graph, later ones replay it; the
-    graphs are kept with the program (``prog.replays``), so a later run of
-    any sampler replays them.  The first chunk allocates the buffers
-    inside its graph.  A remainder chunk shorter than ``_FUSED_CHUNK``, and
-    the very first run's first chunk (which learns the merge unroll from
-    the outputs' shapes), run eagerly.  The threshold and an SMC round's
-    mixture are device tensors kept with the graphs, rewritten each run,
-    so one graph serves any threshold and every round.  SMC proposals
-    draw a learned number of masked prior-support redraw rounds inside
-    the graph (:meth:`.utils.GMDistribution.rvs_masked`, each round in an
-    IF node that skips it once every row is inside), kept with the
-    graphs (``replays.memo``) and part of the graph's key: an eager
-    proposal chunk raises it to the most rounds one of its batches took
-    plus ``_REDRAW_HEADROOM``, at most ``_REDRAW_CAP``.  The chunk's flag
-    that a batch needed more, and the rounds its batches ran, are read
-    with its acceptance count, and such
-    a chunk is run again eagerly from the state it started from, which
-    the graph saves, with the eager redraw loop; the run's later chunks
-    run eagerly, and the next run (the next round) takes the graph of the
-    raised count.  Every path gives the eager loop's rows, bit for bit.
+    Where every device is CUDA and the program is capturable, a share is a
+    CUDA graph on its card (the counterpart of the JAX package's
+    ``chunk_fn``), kept with the card's program (``prog.on(card).replays``,
+    on one device ``prog.replays``), so a later run of any sampler replays
+    it.  A share's key holds its position, the chunk's first batch modulo
+    ``D``, and its merges of the chunk's merge schedule (which merges take
+    how many batches, and which merge flat because the buffer has not
+    taken ``n`` rows yet: a host decision), so the first chunks, which
+    merge flat, and the steady state are separate graphs; a card named at
+    several positions keeps a graph a position, under a cap raised to
+    ``capture.CAP`` times the positions naming it.  Each key's first chunk
+    runs eagerly and recorded, its second captures the graph, later ones
+    replay it, on the card's side stream; the host queues the shares'
+    replays one after another and waits for none.  The first chunk
+    allocates the buffers inside its graph.  A remainder chunk shorter
+    than ``_FUSED_CHUNK``, and the very first run's first chunk (which
+    learns the merge unroll from the outputs' shapes), run eagerly.  The
+    threshold, an SMC round's mixture and, over several devices, each
+    position's first batch of the chunk (which ``__pos`` counts from) are
+    device tensors kept with the graphs, rewritten each chunk or run, so
+    one graph serves any threshold, every round and every chunk.
 
-    Over a device list (``D > 1``) a chunk runs card after card, each
-    card's share one span ``elfi.card``: its batches ``i`` with ``i % D``
-    its position, and their merges into its own buffer, whose rows carry
-    their global simulation index (``__pos``).  When every device is CUDA
-    and the program is capturable, a card's share is a CUDA graph on that
-    card, recorded, captured and replayed as the one-card chunk, on the
-    card's side stream; the host queues card 0's replay, then card 1's,
-    and so on, and waits for none.  A graph reads its chunk's first batch
-    from a device scalar the host rewrites before each replay, so
-    ``__pos`` counts on across chunks.  Each card's graphs are kept with
-    its own program (``prog.on(card).replays``); a key holds the card's
-    position in the list, so one card named several times keeps a graph
-    a position, under a cap raised to ``capture.CAP`` times the
-    positions naming it.  The first run's first chunk and a remainder
-    chunk run eagerly, as on one card; in threshold mode the host reads
-    each card's acceptance count once a chunk.  SMC proposals over a
-    device list stay eager (no per-card graph holds their redraw
-    rounds)."""
+    SMC proposals on one device draw a learned number of masked
+    prior-support redraw rounds inside the graph
+    (:meth:`.utils.GMDistribution.rvs_masked`, each round in an IF node
+    that skips it once every row is inside), kept with the graphs
+    (``memo``) and part of the key: an eager proposal chunk raises it to
+    the most rounds one of its batches took plus ``_REDRAW_HEADROOM``, at
+    most ``_REDRAW_CAP``.  Every share returns one stat vector: the rows
+    it accepted, then, where its proposals are masked, its flag that a
+    batch needed more rounds than the graph held and the rounds its
+    batches ran.  The host reads the vectors once a chunk, in threshold
+    mode or where proposals are masked; a flagged share runs again
+    eagerly from the state it started from, which the graph saves, with
+    the eager redraw loop, the run's later chunks run eagerly, and the
+    next run (the next round) takes the graph of the raised count.  SMC
+    proposals over several devices stay eager.  Every path gives the
+    eager loop's rows, bit for bit.
+
+    :attr:`counts` holds the run's counters (:meth:`Rejection._run_fused`
+    copies them into the sampler's state)."""
 
     def __init__(self, prog, devices, batch_size, seed, start_index, n,
                  disc, threshold, overrides_spec):
@@ -196,41 +198,36 @@ class _ChunkLoop:
         progs = [prog.on(dev) for dev in devices]
         self.fns = [p.traceable(batch_size) for p in progs]
         self.spec = overrides_spec
-        if self.D == 1:
-            self.captured = (capture.enabled(devices[0]) and prog.capturable
-                             and (overrides_spec is None
-                                  or hasattr(overrides_spec, "masked")))
-        else:
-            self.captured = (all(capture.enabled(d) for d in devices)
-                             and prog.capturable and overrides_spec is None)
-        self.replays = replays = prog.replays
-        #: each position's graphs: its card's program's (on one device,
-        #: ``prog``'s own, as ever)
-        self.graphs = [replays] if self.D == 1 else [p.replays
-                                                     for p in progs]
-        self._replays0 = replays.replays
-        #: the chunk shares each position ran from its graph (``D > 1``)
-        self.card_replayed = [0] * self.D
-        #: chunks run again eagerly for a proposal's redraw
-        self.redone = 0
+        self.captured = (all(capture.enabled(d) for d in devices)
+                         and prog.capturable
+                         and (overrides_spec is None
+                              or self.D == 1
+                              and hasattr(overrides_spec, "masked")))
+        #: each position's graphs: its card's program's
+        self.graphs = [p.replays for p in progs]
+        self.counts = dict(
+            #: chunk shares run again eagerly for a proposal's redraw
+            redone_chunks=0,
+            #: the most redraw rounds a graph of this run held
+            redraw_rounds=0,
+            #: the proposal batches this run's graphs drew with masked
+            #: rounds, and the rounds those ran
+            masked_batches=0, redraw_rounds_run=0,
+            #: each position's batches, and its shares run from its graph
+            card_batches=[0] * self.D, card_replays=[0] * self.D)
         #: set by a redone chunk: this run's later chunks run eagerly
         #: (scripts/torch_capture_ab.py, MA2 SMC at batch 2000 from a
         #: fresh model: 12.2 s against 12.9 s for the four-run turns with
         #: a redo, where the later chunks took the raised count's graph)
         self.eager_proposals = False
-        #: the most redraw rounds a graph of this run held
-        self.held = 0
-        #: the proposal batches this run's graphs drew with masked rounds,
-        #: and the rounds those ran
-        self.masked_batches = self.rounds_run = 0
         self.parts = [None] * self.D
         self.merged = [0] * self.D
-        self.unroll = replays.memo.get(("unroll", self.fns[0])) \
+        self.unroll = self.graphs[0].memo.get(("unroll", self.fns[0])) \
             if self.captured else None
         if self.captured:
             if overrides_spec is not None:
                 # the graphs read the mixture from buffers kept with them
-                self.spec = overrides_spec.on_buffers(replays)
+                self.spec = overrides_spec.on_buffers(self.graphs[0])
                 self.rounds_key = ("redraw_rounds", self.spec.graph_key)
             shape = threshold.shape if isinstance(threshold,
                                                   torch.Tensor) else ()
@@ -243,9 +240,9 @@ class _ChunkLoop:
                 else:
                     thr.fill_(threshold)
                 self.thrs.append(thr)
+            for graphs, m in collections.Counter(self.graphs).items():
+                graphs.cap = max(graphs.cap, m * capture.CAP)
             if self.D > 1:
-                for graphs, m in collections.Counter(self.graphs).items():
-                    graphs.cap = max(graphs.cap, m * capture.CAP)
                 #: each position's first batch of the chunk its graph runs
                 self.firsts = [graphs.buffer(("first_batch", k), (),
                                              torch.int64, dev)
@@ -301,7 +298,7 @@ class _ChunkLoop:
 
     def _rounds(self):
         """The redraw rounds a graph of these proposals holds now."""
-        return self.replays.memo.get(self.rounds_key, 0)
+        return self.graphs[0].memo.get(self.rounds_key, 0)
 
     def _learn(self):
         """Raise the learned redraw rounds to cover the most that a batch
@@ -309,201 +306,166 @@ class _ChunkLoop:
         cap."""
         most = self.spec.most_rounds
         if most > self._rounds():
-            self.replays.memo[self.rounds_key] = min(
+            self.graphs[0].memo[self.rounds_key] = min(
                 _REDRAW_CAP, most + _REDRAW_HEADROOM)
 
-    def _body(self, parts, i0, length, rounds, card=None, first=None,
-              ran=None):
-        """Queue the chunk at batch ``i0`` from the buffers ``parts``, the
-        proposals drawn with ``rounds`` masked redraw rounds (None: the
-        eager redraw loop), each round that runs adding 1 to ``ran``;
-        returns (the new buffers, each device's acceptance counts, each
-        masked proposal's flag that its rows are in the prior's
-        support).  ``card``: only the batches and merges
-        of that position (None: every position's, in batch order);
-        ``first``: a device scalar holding ``i0`` that ``__pos`` counts
-        from (a graph's, with ``rows``, the row indices 0 .. B - 1 of
-        each position), else ``i0`` itself."""
-        parts = list(parts)
-        pending = [[] for _ in self.devices]
-        accs = [[] for _ in self.devices]
-        oks = []
+    def _body(self, part, i0, length, rounds, card, ran=None, first=None):
+        """Queue position ``card``'s batches of the chunk at batch ``i0``
+        and their merges into its buffers ``part``, the proposals drawn
+        with ``rounds`` masked redraw rounds (None: the eager redraw
+        loop), each round that runs adding 1 to ``ran``; returns (the new
+        buffers, the merges' acceptance counts, each masked proposal's
+        flag that its rows are in the prior's support).  ``first``: a
+        device scalar holding ``i0`` that ``__pos`` counts from (a
+        graph's, with ``rows``), else ``i0`` itself."""
+        dev, fn, thr = self.devices[card], self.fns[card], self.thrs[card]
+        pending, accs, oks = [], [], []
         merges = None
 
-        def merge(k):
+        def merge(part):
             _, _, fresh = next(merges)
-            outs, pending[k] = pending[k], []
-            cat = outs[0] if len(outs) == 1 else {
-                name: torch.cat([o[name] for o in outs]) for name in outs[0]}
-            parts[k], acc = topk.merge_scan(parts[k], cat, self.thrs[k],
-                                            self.disc, fresh=fresh)
-            accs[k].append(acc)
+            cat = pending[0] if len(pending) == 1 else {
+                name: torch.cat([o[name] for o in pending])
+                for name in pending[0]}
+            pending.clear()
+            part, acc = topk.merge_scan(part, cat, thr, self.disc,
+                                        fresh=fresh)
+            accs.append(acc)
+            return part
 
-        for i in range(i0, i0 + length):
-            k = i % self.D
-            if card is not None and k != card:
-                continue
-            dev = self.devices[k]
+        for i in range(i0 + (card - i0) % self.D, i0 + length, self.D):
             ov = {}
             if self.spec is not None and rounds is not None:
                 ov, ok = self.spec.masked(i, rounds, ran)
                 oks.append(ok)
             elif self.spec is not None:
                 ov = self.spec(i)
-            out = self.fns[k](self.seed, i, {name: v.to(dev)
-                                             for name, v in ov.items()})
+            out = fn(self.seed, i,
+                     {name: v.to(dev) for name, v in ov.items()})
             if self.unroll is None:
                 self.unroll = _fused_unroll(self.B, out)
                 if self.captured:
-                    self.replays.memo[("unroll", self.fns[0])] = self.unroll
+                    self.graphs[0].memo[("unroll", self.fns[0])] = \
+                        self.unroll
             if merges is None:
                 merges = iter([m for m in self._plan(i0, length)[0]
-                               if card is None or m[0] == card])
+                               if m[0] == card])
             if self.D > 1:      # the global simulation index of each row
                 out = dict(out, __pos=torch.arange(
                     i * self.B, (i + 1) * self.B, device=dev)
-                    if first is None else self.rows[k]
+                    if first is None else self.rows[card]
                     + (first + (i - i0)) * self.B)
-            if parts[k] is None:
-                parts[k] = topk.init_buffers(self.n, out, self.disc)
+            if part is None:
+                part = topk.init_buffers(self.n, out, self.disc)
                 if self.D > 1:
-                    parts[k]["__pos"].fill_(-1)
-            pending[k].append(out)
-            if len(pending[k]) == self.unroll:
-                merge(k)
-        for k in range(self.D):     # the remainder: the chunk ends merged
-            if pending[k]:
-                merge(k)
-        return parts, accs, oks
+                    part["__pos"].fill_(-1)
+            pending.append(out)
+            if len(pending) == self.unroll:
+                part = merge(part)
+        if pending:             # the remainder: the chunk ends merged
+            part = merge(part)
+        return part, accs, oks
 
     def chunk(self, start, length, read):
         """Queue this run's batches ``start .. start + length - 1`` and
-        their merges; with ``read``, return the rows they accepted (a host
-        read), else 0."""
+        their merges, each position's share in turn; with ``read``, return
+        the rows they accepted (a host read), else 0."""
         with annotate("elfi.chunk"):
-            if self.D > 1:
-                return self._cards(start, length, read)
             i0 = self.start_index + start
+            plan, merged = self._plan(i0, length)
             graph = (self.captured and self.unroll is not None
                      and length == _FUSED_CHUNK and not self.eager_proposals)
-            if not graph:
-                parts, accs, _ = self._body(self.parts, i0, length, None)
-                self.merged = self._plan(i0, length)[1]
-                self.parts = parts
-                if self.captured and self.spec is not None:
-                    self._learn()
-                return _accepted(accs) if read else 0
-            plan, merged = self._plan(i0, length)
-            masked = self.spec is not None
-            rounds = self._rounds() if masked else None
-            # the first chunk allocates the buffers inside its graph
-            state = self.parts[0] or {}
-            key = ("chunk", self.fns[0], self.B, self.n, self.disc, plan,
-                   tuple(self.thrs[0].shape),
-                   (self.spec.graph_key, rounds) if masked else None,
-                   tuple((k, tuple(v.shape), v.dtype)
-                         for k, v in state.items()))
-
-            def fn(state, i0):
-                dev = self.devices[0]
-                ran = torch.zeros((), dtype=torch.int64, device=dev) \
-                    if masked else None
-                parts, accs, oks = self._body([state or None], i0, length,
-                                              rounds, ran=ran)
-                bad = (~torch.stack(oks)).sum() if oks else torch.zeros(
-                    (), dtype=torch.int64, device=dev)
-                return parts[0], torch.stack(
-                    [torch.stack(accs[0]).sum(), bad]
-                    + ([ran] if masked else []))
-
-            bases = {"node": self.seed}
-            if masked:
-                bases["batch"] = self.spec.key
-                self.held = max(self.held, rounds)
-            new, extra = self.replays(key, state, fn, bases, i0,
-                                      self.devices[0], snapshot=masked)
-            stat, before = extra if masked else (extra, None)
-            self.parts = [new]
-            if not (read or masked):
-                self.merged = merged
-                return 0
-            with annotate("elfi.host_read"):
-                accepted, bad, *ran = stat.tolist()
-            if masked:
-                self.masked_batches += length
-                self.rounds_run += ran[0]
-            if bad:
-                # a proposal needed more redraw rounds than the graph holds:
-                # the chunk again, eagerly, from the state it started from:
-                # its buffers, and the rows merged before it, which set its
-                # merges as they set the graph's (merged after it, a first
-                # chunk's flat merges would be culled ones)
-                with annotate("elfi.chunk.redo"):
-                    parts, accs, _ = self._body([dict(before) or None], i0,
-                                                length, None)
-                    self.parts = parts
-                    self.redone += 1
-                    self.eager_proposals = True
-                    self._learn()
-                    accepted = _accepted(accs)
+            rounds = self._rounds() if graph and self.spec is not None \
+                else None
+            shares = []
+            for k, dev in enumerate(self.devices):
+                card = annotate("elfi.card") if self.D > 1 \
+                    else contextlib.nullcontext()
+                with card, capture.on_device(dev):
+                    shares.append(self._share(k, i0, length,
+                                              plan if graph else None,
+                                              rounds, read))
+            if not graph and self.captured and self.spec is not None:
+                self._learn()
+            accepted = 0
+            if read or rounds is not None:
+                with annotate("elfi.host_read"):
+                    stats = [[0] if s is None else s.tolist()
+                             for s, _ in shares]
+                if rounds is not None:
+                    self.counts["redraw_rounds"] = max(
+                        self.counts["redraw_rounds"], rounds)
+                    self.counts["masked_batches"] += length
+                for k, (acc, *masked) in enumerate(stats):
+                    if masked:
+                        flagged, ran = masked
+                        self.counts["redraw_rounds_run"] += ran
+                        if flagged:
+                            acc = self._redo(k, i0, length, shares[k][1])
+                    accepted += acc
             self.merged = merged
+            # a position's rows merged are its batches'
+            self.counts["card_batches"] = [m // self.B for m in merged]
             return accepted if read else 0
 
-    def _cards(self, start, length, read):
-        """:meth:`chunk` over the device list: each card's share in turn,
-        a graph a card where the chunk is captured."""
-        i0 = self.start_index + start
-        plan, merged = self._plan(i0, length)
-        graph = (self.captured and self.unroll is not None
-                 and length == _FUSED_CHUNK)
-        accs = [[] for _ in self.devices]
-        for k, dev in enumerate(self.devices):
-            with annotate("elfi.card"), capture.on_device(dev):
-                if graph:
-                    accs[k].append(self._card_graph(k, i0, length, plan))
-                else:
-                    self.parts, card_accs, _ = self._body(
-                        self.parts, i0, length, None, card=k)
-                    accs[k] = card_accs[k]
-        self.merged = merged
-        return _accepted(accs) if read else 0
-
-    def _card_graph(self, k, i0, length, plan):
-        """Position ``k``'s share of the chunk at batch ``i0`` through its
-        card's graphs; returns its acceptance count (a device tensor)."""
-        graphs, dev, first = self.graphs[k], self.devices[k], self.firsts[k]
+    def _share(self, k, i0, length, plan, rounds, read):
+        """Position ``k``'s share of the chunk at batch ``i0``: eagerly
+        without a ``plan``, else through its card's graphs, keyed by its
+        merges of ``plan`` and by the masked redraw ``rounds`` of its
+        proposals (None: none masked); returns (its stat vector, None for
+        an eager share that is not ``read``; where its proposals are
+        masked, the state it started from)."""
+        if plan is None:
+            self.parts[k], accs, _ = self._body(self.parts[k], i0, length,
+                                                None, k)
+            return (_stat(accs) if read and accs else None), None
+        graphs, dev = self.graphs[k], self.devices[k]
+        masked = rounds is not None
+        first = self.firsts[k] if self.D > 1 else None
         # the first chunk allocates the buffers inside its graph
         state = self.parts[k] or {}
-        key = ("card", k, i0 % self.D, self.fns[k], self.B, self.n,
+        key = ("chunk", k, i0 % self.D, self.fns[k], self.B, self.n,
                self.disc, tuple(m for m in plan if m[0] == k),
                tuple(self.thrs[k].shape),
+               (self.spec.graph_key, rounds) if masked else None,
                tuple((name, tuple(v.shape), v.dtype)
                      for name, v in state.items()))
 
         def fn(state, i0):
-            parts = [None] * self.D
-            parts[k] = state or None
-            parts, accs, _ = self._body(parts, i0, length, None, card=k,
-                                        first=first)
-            return parts[k], torch.stack(accs[k]).sum()
+            ran = torch.zeros((), dtype=torch.int64, device=dev) \
+                if masked else None
+            part, accs, oks = self._body(state or None, i0, length, rounds,
+                                         k, ran, first)
+            if not masked:
+                return part, _stat(accs)
+            return part, _stat(accs, (~torch.stack(oks)).sum(), ran)
 
-        first.fill_(i0)
+        bases = {"node": self.seed}
+        if masked:
+            bases["batch"] = self.spec.key
+        if first is not None:
+            first.fill_(i0)
         before = graphs.replays
-        self.parts[k], acc = graphs(key, state, fn, {"node": self.seed}, i0,
-                                    dev)
-        self.card_replayed[k] += graphs.replays - before
-        return acc
+        self.parts[k], extra = graphs(key, state, fn, bases, i0, dev,
+                                      snapshot=masked)
+        self.counts["card_replays"][k] += graphs.replays - before
+        return extra if masked else (extra, None)
 
-    def card_counts(self, done):
-        """(the batches each position ran of this run's first ``done``,
-        the chunk shares each ran from its graph): ``state["card_batches"]``
-        and ``state["card_replays"]``."""
-        s = self.start_index
-        batches = [len(range(s + (k - s) % self.D, s + done, self.D))
-                   for k in range(self.D)]
-        if self.D == 1:
-            return batches, [self.replays.replays - self._replays0]
-        return batches, list(self.card_replayed)
+    def _redo(self, k, i0, length, before):
+        """Position ``k``'s share of the chunk at batch ``i0`` again,
+        eagerly, from the state it started from, ``before``: a proposal
+        needed more redraw rounds than the graph holds.  The rows merged
+        before the chunk set its merges as they set the graph's (merged
+        after it, a first chunk's flat merges would be culled ones).
+        Returns the rows it accepted (a host read)."""
+        with annotate("elfi.chunk.redo"):
+            self.parts[k], accs, _ = self._body(dict(before) or None, i0,
+                                                length, None, k)
+            self.counts["redone_chunks"] += 1
+            self.eager_proposals = True
+            self._learn()
+            with annotate("elfi.host_read"):
+                return int(torch.stack(accs).sum())
 
     def final_parts(self):
         """The buffers of every device; a graph's static buffers are
@@ -514,11 +476,12 @@ class _ChunkLoop:
         return parts
 
 
-def _accepted(accs):
-    """The rows accepted, from each device's acceptance counts of a chunk:
-    a host read."""
-    with annotate("elfi.host_read"):
-        return sum(int(torch.stack(a).sum()) for a in accs if a)
+def _stat(accs, *masked):
+    """A share's stat vector, from its merges' acceptance counts: the rows
+    it accepted, then ``masked`` (its flag and the redraw rounds run)."""
+    if not masked:
+        return torch.stack(accs).sum(0, keepdim=True)
+    return torch.stack([torch.stack(accs).sum(), *masked])
 
 
 def _float32_threshold(t, device):
@@ -701,26 +664,27 @@ class Rejection(Sampler):
         which takes the culled merge once that device's buffer has taken
         ``n`` rows.
 
-        On one CUDA device a capturable program's chunks are CUDA graphs
-        (:class:`_ChunkLoop`), kept with the program (``prog.replays``) for
-        every sampler that runs it, bit for bit the eager chunks.
-
         Under a :class:`ShardedBackend` batch ``i`` runs whole on device
         ``i % n_devices`` (its overrides copied there), each device merges
         its own batches into its own top-N, and the last merge
         (:func:`~elfi_tpu_torch.ops.topk.merge_parts`) keeps the rows and
         the order of the one-device run: every batch is the native batch,
-        and ties go to the earlier simulation.  On CUDA cards a
-        capturable program's chunk is one graph a card, its share of the
-        chunk (:class:`_ChunkLoop`); SMC's proposals over a device list
-        run eagerly.  ``state["card_batches"]`` and
+        and ties go to the earlier simulation.  One device is a list of
+        one.  On CUDA cards a capturable program's chunk is one graph a
+        card, its share of the chunk (:class:`_ChunkLoop`), kept with the
+        card's program for every sampler that runs it, bit for bit the
+        eager chunk; SMC's proposals over several devices run eagerly.
+
+        Returns the loop's counters (:attr:`_ChunkLoop.counts`), also
+        copied into the state: ``state["card_batches"]`` and
         ``state["card_replays"]`` list, a device of the list each, the
-        batches it ran and the chunk shares it ran from a graph.
+        batches it ran and the chunk shares it ran from a graph;
         ``state["redraw_rounds"]`` is the most masked redraw rounds a graph
         of the run held, ``state["masked_batches"]`` the proposal batches
-        its graphs drew with them, and ``state["redraw_rounds_run"]`` the
+        its graphs drew with them, ``state["redraw_rounds_run"]`` the
         rounds of those that ran (the others were skipped: every row was
-        inside)."""
+        inside), and ``state["redone_chunks"]`` the shares run again
+        eagerly."""
         if seed is None:
             seed = self.seed
         devices = getattr(self.client, "mesh", None) or [self.device]
@@ -761,14 +725,10 @@ class Rejection(Sampler):
             pb.finish()
         self.state["n_batches"] = done
         self.state["n_sim"] = done * self.batch_size
-        self.state["redone_chunks"] = loop.redone
-        self.state["redraw_rounds"] = loop.held
-        self.state["masked_batches"] = loop.masked_batches
-        self.state["redraw_rounds_run"] = loop.rounds_run
-        self.state["card_batches"], self.state["card_replays"] = \
-            loop.card_counts(done)
+        self.state.update(loop.counts)
         self.state["samples"] = topk.merge_parts(parts, n, self.device)
         self.objective["n_batches"] = done
+        return loop.counts
 
     def plot_state(self, **options):
         """The current top-N sample's parameters (copied off the card)."""
@@ -959,18 +919,16 @@ class SMC(Sampler):
             rej.bar = False
             rnd = self.state["round"]
             with annotate("elfi.smc.round"):
-                rej._run_fused(prog if rnd == 0 else prog_prop,
-                               rej.objective.get("threshold"),
-                               seed=self.seed, start_index=start,
-                               overrides_spec=self._propose if rnd else None)
+                counts = rej._run_fused(
+                    prog if rnd == 0 else prog_prop,
+                    rej.objective.get("threshold"), seed=self.seed,
+                    start_index=start,
+                    overrides_spec=self._propose if rnd else None)
             start += rej.state["n_batches"]
-            self.state["redone_chunks"] = (self.state.get("redone_chunks", 0)
-                                           + rej.state["redone_chunks"])
-            self.state["redraw_rounds"] = max(
-                self.state.get("redraw_rounds", 0),
-                rej.state["redraw_rounds"])
-            for k in ("masked_batches", "redraw_rounds_run"):
-                self.state[k] = self.state.get(k, 0) + rej.state[k]
+            for k, v in counts.items():
+                if not isinstance(v, list):     # not a run's per device
+                    fold = max if k == "redraw_rounds" else operator.add
+                    self.state[k] = fold(self.state.get(k, 0), v)
             self.state["n_sim"] += rej.state["n_sim"]
             self.state["n_batches"] += rej.state["n_batches"]
             if pb:

@@ -17,7 +17,8 @@ inside the spans open when it starts): ``elfi.sampler.init`` (an
 inference method's base built), ``elfi.sample`` (a sampler's call),
 ``elfi.chunk`` (a chunk of the fused loop) and ``elfi.chunk.redo`` (a
 flagged chunk run again eagerly), ``elfi.card`` (one card's share of a
-chunk over a device list: its eager batches and merges, or its graph),
+chunk over a list of several devices: its eager batches and merges, or
+its graph; one device has no such span),
 ``elfi.merge_parts`` (the device list's last merge, the copies onto the
 first device included), ``elfi.graph.record`` / ``.capture`` /
 ``.replay`` (a call into :class:`~elfi_tpu_torch.utils.capture.Replays`,

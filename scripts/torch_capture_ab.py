@@ -322,9 +322,9 @@ def redo_then_graphs(chunk):
     """``_ChunkLoop.chunk`` after which a redone chunk's later chunks take
     the graph of the raised count, where the port runs them eagerly."""
     def run(self, *args, **kwargs):
-        redone = self.redone
+        redone = self.counts["redone_chunks"]
         out = chunk(self, *args, **kwargs)
-        if self.redone > redone:
+        if self.counts["redone_chunks"] > redone:
             self.eager_proposals = False
         return out
     return run

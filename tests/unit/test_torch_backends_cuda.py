@@ -24,6 +24,8 @@ from elfi_tpu_torch.models import ma2, ma2_kernel
 from elfi_tpu_torch.ops.kernels.ma2 import ma2_distance
 from elfi_tpu_torch.utils import capture
 
+from chunk_keys import chunk_keys
+
 torch.set_num_threads(1)
 
 BATCH, N_BATCHES = 2**14, 4
@@ -128,7 +130,7 @@ def test_card_graphs_equal_the_eager_list_and_one_device(cuda, cards,
     # each card's graphs are kept with its own program, a key a position
     for dev in dict.fromkeys(devices):
         prog = compile_program(m, tuple(rej.output_names), device=dev)
-        at = {key[1] for key in prog.replays.entries if key[0] == "card"}
+        at = {key.position for key in chunk_keys(prog.replays).values()}
         assert at == {k for k, d in enumerate(devices) if d == dev}
 
 

@@ -30,6 +30,7 @@ from elfi_tpu_torch.models import gauss, ma2, ma2_kernel
 from elfi_tpu_torch.ops import topk
 from elfi_tpu_torch.utils import capture, profiling, rng
 
+from chunk_keys import chunk_keys
 from test_torch_spans import inside, spans_of
 
 torch.set_num_threads(1)
@@ -407,8 +408,8 @@ def test_gauss2d_smc_rounds_replayed_equal_eager(cpu_capture, small_chunks):
     assert graphs.replays > 0
     assert _learned_rounds(graphs) == 0
     assert smc.state["redraw_rounds"] == smc.state["redone_chunks"] == 0
-    keys = [k for k in graphs.entries if k[0] == "chunk"]
-    assert keys and all(k[7][1] == 0 for k in keys)
+    keys = chunk_keys(graphs).values()
+    assert keys and all(k.proposals[1] == 0 for k in keys)
 
 
 def test_smc_proposal_chunk_equals_old_loop(cpu_capture, small_chunks):

@@ -32,6 +32,8 @@ from elfi_tpu_torch.ops.kernels import ma2 as k1
 from elfi_tpu_torch.ops.kernels import topn
 from elfi_tpu_torch.utils import capture
 
+from chunk_keys import chunk_keys
+
 torch.set_num_threads(1)
 
 
@@ -253,8 +255,10 @@ def test_smc_captured_equals_eager(cuda, eager, monkeypatch, which):
     assert smc.state["redraw_rounds_run"] == (
         sum(took) if conditional else held * len(took))
     # a graph of proposals holds an IF node a round a batch
-    masked = [(key[7][1], g[1]) for key, g in graphs.entries.items()
-              if isinstance(g, tuple) and key[7] is not None]
+    masked = [(key.proposals[1], graphs.entries[k][1])
+              for k, key in chunk_keys(graphs).items()
+              if isinstance(graphs.entries[k], tuple)
+              and key.proposals is not None]
     assert masked and all(rounds == held for rounds, _ in masked)
     for rounds, graph in masked:
         assert graph.conditionals == (

@@ -21,6 +21,7 @@ from elfi_tpu_torch.methods import samplers
 from elfi_tpu_torch.models import ma2, ma2_kernel
 from elfi_tpu_torch.utils import capture, profiling
 
+from chunk_keys import chunk_keys
 from test_torch_capture import (_equal, cpu_capture,  # noqa: F401
                                 small_chunks)
 from test_torch_spans import inside, named, spans_of
@@ -59,7 +60,7 @@ def _rejection(model, devices, threshold=None, seed=5):
 
 # -- each card's share of a chunk through the capture machinery --------------
 
-@pytest.mark.parametrize("n_cards", [2, 3, 4])
+@pytest.mark.parametrize("n_cards", [1, 2, 3, 4])
 @pytest.mark.parametrize("threshold", [None, 0.2])
 @pytest.mark.parametrize("model", [ma2, ma2_kernel])
 def test_card_graphs_equal_the_eager_list_and_one_device(
@@ -67,7 +68,9 @@ def test_card_graphs_equal_the_eager_list_and_one_device(
     """One device named ``n_cards`` times (a card named several times):
     every run equals the eager device list and the one-device run; by the
     fourth run every full chunk's share of every position replays its
-    graph, and the positions keep a graph each under a raised cap."""
+    graph, and the positions keep a graph each under a raised cap.  The
+    one-device run is the list of one: its graphs are position 0's of
+    that list, kept beside a longer list's."""
     m = model.get_model(seed_obs=4)
     devices = ["cpu"] * n_cards
     cpu_capture["on"] = False
@@ -85,13 +88,18 @@ def test_card_graphs_equal_the_eager_list_and_one_device(
     assert sum(rej.state["card_batches"]) == rej.state["n_batches"]
     prog = compile_program(m, tuple(rej.output_names), device="cpu")
     assert prog.replays.cap == capture.CAP * n_cards
-    keys = [k for k in prog.replays.entries if k[0] == "card"]
-    assert {k[1] for k in keys} == set(range(n_cards))
-    # the one-device path keeps its keys beside them
+    keys = chunk_keys(prog.replays)
+    assert {k.position for k in keys.values()} == set(range(n_cards))
+    captures = prog.replays.captures
     _, again = _rejection(m, None, threshold)
     for k in ("d", "t1", "t2"):
         assert _equal(again.outputs[k], want.outputs[k]), k
-    assert any(k[0] == "chunk" for k in prog.replays.entries)
+    added = chunk_keys(prog.replays).keys() - keys.keys()
+    # a list of one replays the one device's graphs; a longer list's are
+    # kept beside them
+    assert bool(added) == (n_cards > 1)
+    assert (prog.replays.captures == captures) == (n_cards == 1)
+    assert all(chunk_keys(prog.replays)[k].position == 0 for k in added)
 
 
 def test_card_graphs_carry_the_global_simulation_index(
