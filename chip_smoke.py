@@ -58,11 +58,17 @@ Phases, each of which raises on failure (exit code != 0):
    against ``torch.randn`` (mean and median within 15 %), determinism per
    seed, and the time per call of the kernel, its plain version and the
    merge at 2**21.
+6a. The short-row sort of ``ss_order`` (``csrc/order_stats_sort.cu``)
+   against ``torch.sort`` at (2**21, 50, 1), ties, +-0, +-inf and NaN
+   included, its input unchanged; its time (queued) beside its bound
+   (8 bytes a value over HBM), ``torch.sort`` and K2's strided network.
 7. The main path on both g-and-k graphs (``models.gnk`` and
    ``models.gnk_kernel``): ``sample(5000, n_sim=2**26)`` at batch 2**21
    and n_obs 50, gated at (0.1, 0.1, 0.5, 0.05) from the JAX package's
    posterior means for the same call; K2 must run 32 times on the kernel
-   graph and never on the plain one.
+   graph and never on the plain one; the short-row sort must run on the
+   plain graph, and a second call's replayed chunks must launch it, and
+   never on the kernel graph.
 7a. The observed data (``phase_observed``, at most 60 s): every zoo
    model's observed data generated on the card through ``get_model``'s
    default device from the Threefry streams (``utils/threefry.py``),
@@ -1353,10 +1359,53 @@ def phase_gnk_kernel_checks(device):
     return result
 
 
+def phase_order_stats(device):
+    """The short-row sort (``ss_order``'s kernel) against ``torch.sort`` at
+    the plain g-and-k graph's shape, special values included, and its time
+    beside its bound, ``torch.sort`` (its plain version, the library call)
+    and K2's strided network entry."""
+    from elfi_tpu_torch.ops.kernels.gnk import gnk_sort_rows
+    from elfi_tpu_torch.ops.kernels.order_stats import sort_rows
+    g = torch.Generator(device=device).manual_seed(31)
+    y = torch.randn((GNK_BATCH, GNK_N_OBS, 1), generator=g, device=device)
+    y[1::5] = torch.round(y[1::5])
+    y[2::7, 3] = math.nan
+    y[3::11, 10:20] = math.inf
+    y[4::13, 5] = -math.inf
+    y[5::17, :] = -0.0
+    kept = y.clone()
+    got = sort_rows(y)
+    want = torch.sort(kept, dim=1).values
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan)
+          and torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0)),
+          "the short-row sort differs from torch.sort")
+    check(torch.equal(y.view(torch.int32), kept.view(torch.int32)),
+          "the short-row sort changed its input")
+    log(f"short-row sort == torch.sort on {GNK_BATCH} rows of {GNK_N_OBS}, "
+        "ties, +-0, +-inf and NaN included; input unchanged")
+    y = torch.randn((GNK_BATCH, GNK_N_OBS, 1), generator=g, device=device)
+    flat = y.reshape(GNK_BATCH, GNK_N_OBS)
+    # the least time: each value read once and written once over HBM
+    out = {"bound_ms": 8 * GNK_BATCH * GNK_N_OBS / HBM_BYTES_S * 1e3}
+    out["ms"] = queued_ms(lambda: sort_rows(y))
+    out["plain_ms"] = out["library_ms"] = queued_ms(
+        lambda: torch.sort(y, dim=1).values)
+    out["strided_network_ms"] = queued_ms(lambda: gnk_sort_rows(flat))
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    log(f"short-row sort ({GNK_BATCH}, {GNK_N_OBS}): kernel "
+        f"{out['ms']!r} ms, bound {out['bound_ms']!r} ms (share "
+        f"{out['bound_share']!r}), torch.sort {out['library_ms']!r} ms, "
+        f"K2's strided network {out['strided_network_ms']!r} ms (median "
+        "of 25, queued)")
+    return out
+
+
 def phase_gnk_main_path(device):
     """Both g-and-k graphs at scripts/gnk_ab.py's operating point."""
     from elfi_tpu_torch.models import gnk, gnk_kernel
     from elfi_tpu_torch.ops.kernels.gnk import gnk_distance
+    from elfi_tpu_torch.ops.kernels.order_stats import sort_rows
     from elfi_tpu_torch.ops.kernels.topn import topn_cull
     graphs = (("gnk plain graph", gnk, 0),
               ("gnk kernel graph", gnk_kernel,
@@ -1367,13 +1416,14 @@ def phase_gnk_main_path(device):
                      GNK_BATCH, N_SAMPLES, 2 * GNK_BATCH, device, seed=0)
     out = {}
     for name, mod, expect in graphs:
-        reset_counts(gnk_distance, topn_cull)
+        reset_counts(gnk_distance, topn_cull, sort_rows)
         torch.cuda.reset_peak_memory_stats(device)
         m = mod.get_model(n_obs=GNK_N_OBS, seed_obs=GNK_SEED_OBS)
         res, dt = timed_sample(m["d"], GNK_BATCH, N_SAMPLES, GNK_N_SIM,
                                device)
         launches = ran(gnk_distance)
         cull = ran(topn_cull)
+        sorts = ran(sort_rows)
         peak = torch.cuda.max_memory_allocated(device)
         d = res.outputs["d"]
         check(d.shape == (N_SAMPLES,), f"{name}: d has shape {d.shape}")
@@ -1391,14 +1441,29 @@ def phase_gnk_main_path(device):
         log(f"{name}: batch {GNK_BATCH}, {res.n_batches} batches, "
             f"{res.n_sim} sims in {dt!r} s = {sims_s!r} sims/s; "
             f"gnk_distance launches {launches} (expected {expect}); "
-            f"topn_cull launches {cull}; peak device memory {peak} bytes")
+            f"topn_cull launches {cull}; order_stats_sort launches {sorts}; "
+            f"peak device memory {peak} bytes")
         check(bool(np.all(err < GNK_GATE)),
               f"{name}: g-and-k gate failed: {means}")
         check(launches == expect, f"{name}: gnk_distance launched "
               f"{launches} times, expected {expect}")
         check(cull > 0, f"{name}: the merge never went through topn_cull")
+        # a fresh model's first call records its chunks; a second call
+        # replays them, the sort inside the graphs
+        reset_counts(sort_rows)
+        timed_sample(m["d"], GNK_BATCH, N_SAMPLES, GNK_N_SIM, device,
+                     seed=2)
+        log(f"{name}, a second call: order_stats_sort launches "
+            f"{sort_rows.launches} by the host, {sort_rows.graph_launches} "
+            "in graphs")
+        check((sorts > 0) == (mod is gnk)
+              and (sort_rows.graph_launches > 0) == (mod is gnk),
+              f"{name}: ss_order's kernel ran {sorts} times, then "
+              f"{sort_rows.graph_launches} in graphs")
         out[name] = dict(seconds=dt, sims_per_s=sims_s, launches=launches,
-                         merge_launches=cull, means=means.tolist(),
+                         merge_launches=cull,
+                         sort_launches=sorts + ran(sort_rows),
+                         means=means.tolist(),
                          n_batches=res.n_batches, peak_bytes=peak)
     return out
 
@@ -4598,15 +4663,17 @@ def main():
     from elfi_tpu_torch.ops.kernels import _build
     from elfi_tpu_torch.ops.kernels import gnk as k2
     from elfi_tpu_torch.ops.kernels import ma2 as k1
-    from elfi_tpu_torch.ops.kernels import topn
+    from elfi_tpu_torch.ops.kernels import order_stats, topn
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for built in [pool.submit(k._lib) for k in (k1, k2, topn)]:
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for built in [pool.submit(k._lib)
+                      for k in (k1, k2, topn, order_stats)]:
             built.result()
-    log(f"built K1, K2 and the cull in {time.perf_counter() - t0!r} s (one "
-        f"nvcc each, in parallel)")
+    log(f"built K1, K2, the cull and the short-row sort in "
+        f"{time.perf_counter() - t0!r} s (one nvcc each, in parallel)")
     ptxas = {}
-    for lib in ("ma2_distance", "gnk_distance", "topn_cull"):
+    for lib in ("ma2_distance", "gnk_distance", "topn_cull",
+                "order_stats_sort"):
         log(f"nvcc {lib}: {_build.build_log[lib]['seconds']!r} s")
         log(_build.build_log[lib]["log"].strip())
         ptxas[lib] = ptxas_entries(_build.build_log[lib]["log"])
@@ -4624,6 +4691,7 @@ def main():
     main_path = phase_main_path(device)
     merge = phase_merge(device)
     k2_checks = phase_gnk_kernel_checks(device)
+    sort_checks = phase_order_stats(device)
     main_path.update(phase_gnk_main_path(device))
     observed = phase_observed(device)
     main_path["observed"] = observed
@@ -4771,6 +4839,24 @@ def main():
         "bound_share": merge["bound_ms"] / merge["ms"],
         "library_ms": merge["library_ms"],
         "ptxas": ptxas["topn_cull"],
+    }, {
+        "name": "order_stats_sort",
+        "route": "cuda",
+        "source": "elfi_tpu_torch/csrc/order_stats_sort.cu",
+        "replaces": "elfi_tpu/models/gnk.py:43 ss_order (XLA's jnp.sort, "
+                    "not Pallas)",
+        "launches": main_path["gnk plain graph"]["sort_launches"],
+        "launches_by_path": {
+            "gnk rejection plain graph":
+                main_path["gnk plain graph"]["sort_launches"]},
+        "ms": sort_checks["ms"],
+        "plain_ms": sort_checks["plain_ms"],
+        "bound_ms": sort_checks["bound_ms"],
+        "bound_by": "bytes",
+        "bound_share": sort_checks["bound_share"],
+        "library_ms": sort_checks["library_ms"],
+        "strided_network_ms": sort_checks["strided_network_ms"],
+        "ptxas": ptxas["order_stats_sort"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
