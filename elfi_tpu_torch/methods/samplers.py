@@ -214,7 +214,9 @@ class _ChunkLoop:
             #: rounds, and the rounds those ran
             masked_batches=0, redraw_rounds_run=0,
             #: each position's batches, and its shares run from its graph
-            card_batches=[0] * self.D, card_replays=[0] * self.D)
+            card_batches=[0] * self.D, card_replays=[0] * self.D,
+            #: the nodes of the graphs those shares replayed
+            graph_nodes=0)
         #: set by a redone chunk: this run's later chunks run eagerly
         #: (scripts/torch_capture_ab.py, MA2 SMC at batch 2000 from a
         #: fresh model: 12.2 s against 12.9 s for the four-run turns with
@@ -448,7 +450,9 @@ class _ChunkLoop:
         before = graphs.replays
         self.parts[k], extra = graphs(key, state, fn, bases, i0, dev,
                                       snapshot=masked)
-        self.counts["card_replays"][k] += graphs.replays - before
+        if graphs.replays > before:
+            self.counts["card_replays"][k] += 1
+            self.counts["graph_nodes"] += graphs.entries[key][1].nodes
         return extra if masked else (extra, None)
 
     def _redo(self, k, i0, length, before):
@@ -683,8 +687,9 @@ class Rejection(Sampler):
         of the run held, ``state["masked_batches"]`` the proposal batches
         its graphs drew with them, ``state["redraw_rounds_run"]`` the
         rounds of those that ran (the others were skipped: every row was
-        inside), and ``state["redone_chunks"]`` the shares run again
-        eagerly."""
+        inside), ``state["redone_chunks"]`` the shares run again
+        eagerly, and ``state["graph_nodes"]`` the nodes of the graphs its
+        shares replayed, one graph's each replay."""
         if seed is None:
             seed = self.seed
         devices = getattr(self.client, "mesh", None) or [self.device]

@@ -3,8 +3,15 @@
 :mod:`elfi_tpu.models.lorenz`).
 
 The simulator is a draw of the closure noise followed by the pure
-transform :func:`forecast_lorenz_from_noise`: an eager loop of RK4 steps,
-each a few batched ops on the (batch, n_obs) state.  The observed
+transform :func:`forecast_lorenz_from_noise`: a loop of RK4 steps, each a
+few batched ops on the (batch, n_obs) state.  The simulator and the six
+summaries are marked ``capturable``: on a CUDA device the fused rejection
+loop replays each full chunk of batches as one CUDA graph
+(:mod:`elfi_tpu_torch.utils.capture`; a run shorter than a chunk runs
+eagerly), so a call copies nothing from the host.  The initial state is put on a device once a process for each
+setting (:func:`_initial_state`), the parameters arrive as device tensors
+and are only reshaped, and the step, the noise's scale and the forcing
+are Python floats.  The observed
 trajectories are the JAX package's draws for any setting and initial
 state: the closure noise comes from the Threefry stream of ``key(seed_obs
 or 0)``; ``data/lorenz_observed.npz`` holds the JAX package's trajectories
@@ -22,6 +29,7 @@ import torch
 
 from ..model.model import Distance, Model, Prior, Simulator, Summary
 from ..utils import threefry
+from ..utils.profiling import annotate
 from ._observed import first_row, memoised, observed_key, true_values
 
 __all__ = ["forecast_lorenz", "forecast_lorenz_from_noise", "get_model",
@@ -68,21 +76,39 @@ def _rk4(y, time_step, eta, theta1, theta2, f):
     return y + (k1 + 2 * k2 + 2 * k3 + k4) * _SIXTH
 
 
+#: each initial state on each device, made once (:func:`_initial_state`)
+_INITIAL = {}
+
+
+def _initial_state(initial_state, n_obs, device):
+    """The float32 (n_obs,) initial state on ``device``: copied there at
+    the first call with this state and device, the same tensor after
+    that."""
+    if initial_state is None:
+        initial_state = _DEFAULT_INITIAL_STATE[:n_obs]
+    y0 = np.asarray(initial_state, np.float32)
+    key = (y0.shape, y0.tobytes(), str(device))
+    if key not in _INITIAL:
+        _INITIAL[key] = torch.as_tensor(y0, device=device)
+    return _INITIAL[key]
+
+
+def _column(theta, device):
+    """A parameter as a float32 (batch, 1) column on ``device``: a
+    program's float32 tensor there is reshaped, not copied."""
+    return torch.as_tensor(theta, dtype=torch.float32,
+                           device=device).reshape(-1, 1)
+
+
 def forecast_lorenz_from_noise(theta1, theta2, es, f=10., phi=0.984,
                                initial_state=None, total_duration=4):
     """The stochastic Lorenz-96 trajectory on the closure noise ``es``
     (n_timestep - 1, batch, n_obs); returns (batch, n_timestep, n_obs)."""
     n_steps, batch_size, n_obs = es.shape
-    if initial_state is None:
-        initial_state = _DEFAULT_INITIAL_STATE[:n_obs]
     device = es.device
-    y = torch.broadcast_to(torch.as_tensor(
-        np.asarray(initial_state, np.float32), device=device),
-        (batch_size, n_obs))
-    theta1 = torch.as_tensor(theta1, dtype=torch.float32,
-                             device=device).reshape(-1, 1)
-    theta2 = torch.as_tensor(theta2, dtype=torch.float32,
-                             device=device).reshape(-1, 1)
+    y = torch.broadcast_to(_initial_state(initial_state, n_obs, device),
+                           (batch_size, n_obs))
+    theta1, theta2 = _column(theta1, device), _column(theta2, device)
     time_step = total_duration / (n_steps + 1)
     # sqrt in float32, as jnp.sqrt of a Python float
     root = float(np.sqrt(np.float32(1 - phi ** 2)))
@@ -99,11 +125,13 @@ def forecast_lorenz(theta1=None, theta2=None, f=10., phi=0.984, n_obs=40,
                     n_timestep=160, batch_size=1, initial_state=None,
                     generator=None, total_duration=4):
     """(batch, n_timestep, n_obs) trajectories on ``generator``'s
-    device."""
-    es = torch.randn((n_timestep - 1, batch_size, n_obs),
-                     generator=generator, device=generator.device)
-    return forecast_lorenz_from_noise(theta1, theta2, es, f, phi,
-                                      initial_state, total_duration)
+    device; one span ``elfi.sim`` where a profiler records an eager run
+    (a replayed graph runs no Python)."""
+    with annotate("elfi.sim"):
+        es = torch.randn((n_timestep - 1, batch_size, n_obs),
+                         generator=generator, device=generator.device)
+        return forecast_lorenz_from_noise(theta1, theta2, es, f, phi,
+                                          initial_state, total_duration)
 
 
 def mean(x):
@@ -132,6 +160,14 @@ def autocov(x):
     a, b = x[:, :-1, :], x[:, 1:, :]
     return torch.mean((a - torch.mean(a, dim=1, keepdim=True))
                       * (b - torch.mean(b, dim=1, keepdim=True)), dim=(1, 2))
+
+
+#: the simulator and the summaries draw only through their generator,
+#: never read the device back and copy nothing from the host in a call
+#: (the initial state is made once a device): the model's programs may be
+#: captured as CUDA graphs (``CompiledProgram.jitted``)
+for _op in (forecast_lorenz, mean, var, cov, xcov, autocov):
+    _op.capturable = True
 
 
 @memoised

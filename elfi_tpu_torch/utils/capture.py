@@ -33,7 +33,8 @@ graph.  A capture that fails raises; nothing falls back to eager on CUDA.
 Kernel wrappers count their launches through :func:`count`: ``launches``
 (launched by the host), ``captured`` (recorded into a graph) and
 ``graph_launches`` (launched by replays: a graph's captured count each
-replay).
+replay).  A :class:`Graph` knows its nodes (:attr:`Graph.nodes`, read from
+the captured ``cudaGraph_t``).
 
 :func:`run_if` runs work only where a device flag holds: in a graph being
 captured, inside a CUDA-graph IF node that the card evaluates at each
@@ -57,7 +58,7 @@ from .profiling import annotate
 
 __all__ = ["Recorder", "Graph", "Replays", "side_stream", "on_side_stream",
            "on_device", "counted", "count", "hold", "enabled", "record",
-           "pack_keys", "run_if", "CAP"]
+           "pack_keys", "run_if", "graph_nodes", "CAP"]
 
 #: capture the fused loops and ``CompiledProgram.jitted`` on a CUDA device;
 #: False runs them eagerly (to compare the two)
@@ -130,6 +131,28 @@ def _if_lib():
     lib.elfi_cuda_error_string.argtypes = [ctypes.c_int]
     lib.elfi_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _libcuda():
+    """``libcuda``, for ``cuGraphGetNodes``."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    return lib
+
+
+def graph_nodes(graph):
+    """The nodes of a ``torch.cuda.CUDAGraph`` made with ``keep_graph=True``
+    and captured, counted in its ``cudaGraph_t`` (an IF node is one node:
+    its body's are not counted)."""
+    n = ctypes.c_size_t(0)
+    err = _libcuda().cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                    None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
+    return int(n.value)
 
 
 def _if_call(entry, *args):
@@ -338,7 +361,12 @@ class Graph:
         self.gens = [torch.Generator(device=device) for _ in self.slots]
         self.keys = torch.zeros(max(len(self.slots), 1), dtype=torch.int64,
                                 device=device)
-        graph = torch.cuda.CUDAGraph()
+        # a capture cannot give the allocator's cached blocks back to the
+        # card, so where they hold it the capture runs out of memory: give
+        # them back first, as torch.cuda.graph does
+        torch.cuda.empty_cache()
+        # kept until its nodes are counted, then instantiated
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for g in (*self.gens, *persistent):
             graph.register_generator_state(g)
         before = [f.captured for f in _COUNTED]
@@ -375,6 +403,9 @@ class Graph:
             raise RuntimeError(
                 f"capture asked for {source.i} streams, its recorded run "
                 f"for {len(self.slots)}")
+        #: the graph's nodes (:func:`graph_nodes`)
+        self.nodes = graph_nodes(graph)
+        graph.instantiate()
         self.graph = graph
         # what the graph reads stays alive with it
         self.fn = fn

@@ -27,7 +27,9 @@ proposal draw), ``elfi.host_read`` (the fused loops waiting on the
 device: for a value, or for the copy of a graph's keys two replays ago
 where it has not ended), ``elfi.smc.round``, ``elfi.smc.population`` and
 ``elfi.smc.next_round`` (an SMC round's chunks, its population copied
-and weighed, the next round set up).
+and weighed, the next round set up), and ``elfi.sim`` (a simulator's call
+where it opens one: Lorenz-96's; in eager and recorded runs only, since a
+replayed graph runs no Python).
 """
 
 from __future__ import annotations

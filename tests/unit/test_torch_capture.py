@@ -73,6 +73,7 @@ class _EagerGraph:
     replays."""
 
     made = []
+    nodes = 0
 
     def __init__(self, fn, recorder, start, device, persistent=()):
         self.fn, self.slots, self.start = fn, list(recorder.slots), start
@@ -281,6 +282,101 @@ def test_rejection_chunk_graph_equals_eager_and_old_loop(
     old = _old_loop(prog, 64, 5, 40, "d", thr, got.n_sim // 64)
     for k in ("d", "t1", "t2"):
         assert _equal(got.outputs[k], old[k].numpy()), k
+
+
+@pytest.mark.parametrize("batches,replayed", [(3, 0), (4, 1), (6, 1),
+                                              (9, 2)])
+def test_a_run_shorter_than_a_chunk_runs_eagerly(
+        cpu_capture, small_chunks, batches, replayed):
+    """A chunk holds ``_FUSED_CHUNK`` batches (4 here): a run's full chunks
+    are recorded, captured and replayed, and a run of fewer batches, like
+    the remainder of a longer run, stays eager.  Every run gives the eager
+    rows, and the replays' graph nodes are counted, one graph's each
+    replay, in the run's state."""
+    m = ma2.get_model(seed_obs=4)
+
+    def run():
+        rej = et.Rejection(m["d"], batch_size=64, seed=5)
+        return rej, rej.sample(40, n_sim=64 * batches, bar=False)
+
+    cpu_capture["on"] = False
+    _, eager = run()
+    cpu_capture["on"] = True
+    _EagerGraph.nodes = 7
+    try:
+        for _ in range(4):
+            rej, got = run()
+            for k in ("d", "t1", "t2"):
+                assert _equal(got.outputs[k], eager.outputs[k]), k
+    finally:
+        _EagerGraph.nodes = 0
+    assert rej.state["card_replays"] == [replayed]
+    assert rej.state["graph_nodes"] == 7 * replayed
+
+
+@pytest.mark.parametrize("model", [ma2, ma2_kernel])
+def test_a_one_chunk_run_is_learned_recorded_captured_then_replayed(
+        cpu_capture, small_chunks, model):
+    """A run of one chunk: the program's first run learns the merge unroll
+    and runs the chunk eagerly, its second records it, its third captures
+    and replays it, its fourth replays it, each with the eager rows."""
+    m = model.get_model(seed_obs=4)
+
+    def run():
+        rej = et.Rejection(m["d"], batch_size=64, seed=5)
+        return rej, rej.sample(40, n_sim=64 * 4, bar=False)
+
+    cpu_capture["on"] = False
+    _, eager = run()
+    cpu_capture["on"] = True
+    counts = []
+    for _ in range(4):
+        rej, got = run()
+        for k in ("d", "t1", "t2"):
+            assert _equal(got.outputs[k], eager.outputs[k]), k
+        graphs = compile_program(m, tuple(rej.output_names),
+                                 device="cpu").replays
+        counts.append((graphs.eager, graphs.captures, graphs.replays))
+    assert counts == [(0, 0, 0), (1, 0, 0), (1, 1, 1), (1, 1, 2)]
+    assert len(graphs.entries) == 1
+
+
+def test_lorenz_is_captured_and_copies_its_initial_state_once(
+        cpu_capture, small_chunks):
+    """ELFI's Lorenz-96 graph is capturable (the simulator and the six
+    summaries, partials included, are marked); two calls of the simulator
+    on one device read one initial-state tensor, made at the first; a
+    chunk run through the capture machinery gives the eager rows."""
+    from elfi_tpu_torch.models import lorenz
+    m = lorenz.get_model(n_timestep=40)
+    prog = compile_program(m, ("d",), device="cpu")
+    assert prog.capturable
+    state = lorenz._initial_state(None, 40, torch.device("cpu"))
+    made = dict(lorenz._INITIAL)
+    g = torch.Generator().manual_seed(0)
+    t = torch.full((4,), 2.0)
+    a = lorenz.forecast_lorenz(t, t / 20, n_timestep=40, batch_size=4,
+                               generator=g)
+    b = lorenz.forecast_lorenz(t, t / 20, n_timestep=40, batch_size=4,
+                               generator=g)
+    assert lorenz._INITIAL == made
+    assert lorenz._initial_state(None, 40, torch.device("cpu")) is state
+    assert torch.equal(a[:, 0], state.expand(4, 40))
+    assert torch.equal(b[:, 0], a[:, 0]) and not torch.equal(a, b)
+
+    def run():
+        return et.Rejection(m["d"], batch_size=32, seed=2).sample(
+            10, n_sim=32 * 4, bar=False)
+
+    cpu_capture["on"] = False
+    want = run()
+    cpu_capture["on"] = True
+    for _ in range(4):
+        got = run()
+        for k in ("d", "theta1", "theta2"):
+            assert _equal(got.outputs[k], want.outputs[k]), k
+    assert compile_program(m, ("d", "theta1", "theta2"),
+                           device="cpu").replays.replays >= 2
 
 
 # -- SMC rounds: the proposal chunk graph ------------------------------------

@@ -2,7 +2,8 @@
 path against the same path run eagerly (``capture._ENABLED = False``), bit
 for bit -- ``CompiledProgram.jitted``, a ``vectorize_traced`` simulator
 (not captured: capture is opt-in), MA2 rejection on both graphs with and
-without a threshold, g-and-k on the kernel graph, SMC on gauss2d and on
+without a threshold, g-and-k on the kernel graph, Lorenz-96's graph,
+SMC on gauss2d and on
 MA2 (its redraw rounds in conditional nodes, and without them), the BSL
 chain (under ``torch.cuda.set_sync_debug_mode("error")``) --
 the kernels K1 and K2 keyed from device memory against their value path,
@@ -181,6 +182,33 @@ def test_gnk_kernel_rejection_captured_equals_eager(cuda, eager):
     _same_sample(got, ref, ("d", "A", "B", "g", "k"))
     kern = [a - b for a, b in zip(_counts(k2.gnk_distance), k0)]
     assert kern[0] + kern[2] == 64 and kern[2] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batches", [16, 20])
+def test_lorenz_rejection_captured_equals_eager(cuda, eager, batches):
+    """ELFI's Lorenz-96 graph, captured: a run of 16 batches is one chunk,
+    which the program's first captured run runs eagerly while it learns
+    the merge unroll, its second records, its third captures and replays
+    and its fourth replays; 20 batches add a remainder of 4 that runs
+    eagerly.  Each run's parameters and distances are the eager run's bit
+    for bit, and the replayed graph holds a node at least for each RK4
+    step's launches."""
+    from elfi_tpu_torch.models import lorenz
+    m = lorenz.get_model()
+    assert compile_program(m, ("d",), device=cuda).capturable
+
+    def run():
+        rej = et.Rejection(m["d"], batch_size=2**12, seed=2, device=cuda)
+        return rej, rej.sample(100, n_sim=2**12 * batches, bar=False)
+
+    _, ref = eager(run)
+    for _ in range(4):
+        rej, got = run()
+        _same_sample(got, ref, ("d", "theta1", "theta2"))
+        assert got.n_sim == ref.n_sim
+    assert rej.state["card_replays"] == [1]
+    assert rej.state["graph_nodes"] >= 16 * 159 * 60
 
 
 @pytest.mark.cuda

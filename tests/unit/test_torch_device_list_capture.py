@@ -102,6 +102,35 @@ def test_card_graphs_equal_the_eager_list_and_one_device(
     assert all(chunk_keys(prog.replays)[k].position == 0 for k in added)
 
 
+@pytest.mark.parametrize("n_cards", [2, 3])
+def test_a_run_shorter_than_a_chunk_runs_eagerly_on_each_card(
+        cpu_capture, small_chunks, n_cards):
+    """A run of 3 batches, fewer than a chunk's 4, over 2 or 3 cards: each
+    card runs its share eagerly, run after run, no card records or
+    replays a graph, and every run's rows are the one device's."""
+    m = ma2_kernel.get_model(seed_obs=4)
+
+    def run(devices):
+        et.set_client("native", device="cpu") if devices is None else \
+            et.set_client("sharded", devices=devices)
+        rej = et.Rejection(m["d"], batch_size=64, seed=5)
+        return rej, rej.sample(40, n_sim=64 * 3, bar=False)
+
+    cpu_capture["on"] = False
+    _, want = run(None)
+    cpu_capture["on"] = True
+    for _ in range(4):
+        rej, got = run(["cpu"] * n_cards)
+        for k in ("d", "t1", "t2"):
+            assert _equal(got.outputs[k], want.outputs[k]), k
+    assert rej.state["card_replays"] == [0] * n_cards
+    assert rej.state["graph_nodes"] == 0
+    assert rej.state["card_batches"] == [len(range(k, 3, n_cards))
+                                         for k in range(n_cards)]
+    prog = compile_program(m, tuple(rej.output_names), device="cpu")
+    assert not prog.replays.entries
+
+
 def test_card_graphs_carry_the_global_simulation_index(
         cpu_capture, small_chunks, monkeypatch):
     """A replayed share's rows carry the global simulation index of the
